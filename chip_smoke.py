@@ -17,7 +17,14 @@ trained checkpoint exists). Along the way:
   4. runs the surrogate on all 8 surface graphs through kernel A
      (sorted_segment_sum), checks it against the plain-aggregation forward,
      and checks kernel A against its plain version on those graph shapes;
-  5. prints the kernels' JSON line, then {"ok": true, "device": {...}}.
+  5. the training path, through the port's CLIs in a temporary --data_root
+     under build/: 16 DOF100K wings (geometry -> mesh -> batched FEM, all
+     converged at TRUE rel <= 1e-6), 3 epochs of the full-width GraphSAGE
+     (9 steps at batch 4, kernels A forward and C backward), inference on
+     the 3 test wings; then the card's gradients of one merged batch against
+     the CPU's, the step's forward/backward/optimizer times, and kernel C
+     (segment_gather) against its plain version on the merged-batch shape;
+  6. prints the kernels' JSON line, then {"ok": true, "device": {...}}.
 
 Every phase raises on failure; the script then exits nonzero and prints no
 result. Usage: python3 chip_smoke.py   (one card, no arguments)
@@ -28,7 +35,9 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -37,6 +46,8 @@ TOL = 1e-6
 PRESSURE = 5e3
 BATCH = 8
 TPU_RECORD_ITERS = 218  # tpufem's iters on the same batch (BENCH_r05); information only
+N_WINGS = 16  # phase 5's dataset: a 11 / 2 / 3 split, 3 steps per epoch at batch 4
+EPOCHS = 3
 
 
 def require(cond, msg):
@@ -217,7 +228,9 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     from tpufem_torch.mesher import DOF100K
 
-    kernels = run(torch.device("cuda"), DOF100K, BATCH)
+    dev = torch.device("cuda")
+    kernels = run(dev, DOF100K, BATCH)
+    kernels += run_training_path(dev, kernels)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -355,6 +368,211 @@ def run(dev, res, batch):
          "f32": {"max_abs_err": kb["max_abs_err_f32"], "ms": kb["ms_f32"],
                  "plain_ms": kb["plain_ms_f32"], "coarse_levels": kb["levels_f32"]}},
     ]
+
+
+def time_step_parts(dev, model, batch, runs=5):
+    """Median seconds of the training step's forward (loss), backward and
+    optimizer (clip + AdamW) on `batch`, each bracketed by synchronize."""
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    parts = {"forward_s": [], "backward_s": [], "optimizer_s": []}
+    from tpufem_torch.models.train import Trainer, clip_by_global_norm_
+
+    for i in range(runs + 1):
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = Trainer._loss_fn(model, batch, gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        clip_by_global_norm_(model.parameters(), 1.0)
+        opt.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if i:  # the first run is a warm-up
+            for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                parts[k].append(v)
+    return {k: float(np.median(v)) for k, v in parts.items()}
+
+
+def check_gradients(dev, graphs):
+    """Every parameter's gradient of one merged batch (dropout off) on the
+    card (kernels A and C) against the same model on the CPU (plain path),
+    to 1e-4 of each tensor's max |grad|."""
+    from tpufem_torch.models.sage import GraphSAGE, SAGEConfig
+    from tpufem_torch.models.train import GraphSet, Trainer
+
+    cfg = SAGEConfig(dropout=0.0)
+    grads, losses = {}, {}
+    for d in (dev, torch.device("cpu")):
+        model = GraphSAGE(cfg, generator=torch.Generator().manual_seed(0), device=d).train()
+        loss = Trainer._loss_fn(model, GraphSet(graphs, d).batch(range(len(graphs))))
+        loss.backward()
+        losses[d.type] = float(loss.detach())
+        grads[d.type] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    worst = 0.0
+    for name, g_cpu in grads["cpu"].items():
+        err = (grads["cuda"][name] - g_cpu).abs().max().item()
+        scale = g_cpu.abs().max().item()
+        require(err <= 1e-4 * scale, f"grad {name}: card vs CPU {err:.3e} > 1e-4 x {scale:.3e}")
+        worst = max(worst, err / max(scale, 1e-30))
+    print(f"[train] gradients of one merged batch ({len(graphs)} graphs, dropout off): "
+          f"{len(grads['cpu'])} tensors, card (kernels A+C) vs CPU plain path: worst "
+          f"|err|/max|grad| {worst:.3e} (bar 1e-4); loss {losses['cuda']:.6f} vs "
+          f"{losses['cpu']:.6f}")
+    return worst
+
+
+def check_segment_gather(dev, batch):
+    """Kernel C against segment_gather_plain at the merged batch's shape:
+    the ids gather_mean_aggregate sorts, cotangent rows of width 128."""
+    from tpufem_torch.ops import gather_scatter as gs
+
+    N = batch.x.shape[0]
+    dst = batch.edge_index[1]
+    dst_eff = torch.where(batch.edge_mask > 0, dst, torch.full_like(dst, N))
+    seg = torch.sort(dst_eff).values.contiguous()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g = torch.randn((N, 128), generator=gen, device=dev)
+    out = gs.segment_gather(g, seg, N)
+    plain = gs.segment_gather_plain(g, seg, N)
+    torch.cuda.synchronize()
+    require(torch.equal(out, plain), "kernel C differs from its plain version (a copy: bitwise)")
+    require(torch.equal(out, gs.segment_gather(g, seg, N)), "kernel C not deterministic")
+    ms = median_ms(lambda: gs.segment_gather(g, seg, N))
+    plain_ms = median_ms(lambda: gs.segment_gather_plain(g, seg, N))
+    print(f"[kernel C] segment_gather merged batch: E={seg.shape[0]} C=128 N={N}: bitwise "
+          f"equal to plain, deterministic; {ms:.4f} ms vs plain {plain_ms:.4f} ms (median of 7)")
+    return {"max_abs_err": (out - plain).abs().max().item(), "ms": ms, "plain_ms": plain_ms,
+            "E": seg.shape[0]}
+
+
+def run_training_path(dev, kernels):
+    """Phase 5: dataset CLIs -> train_gnn -> inference_gnn at DOF100K, then
+    the gradient, step-time and kernel C checks. Reuses no state of phases
+    1-4. Returns kernel C's report entry (and adds the training launches to
+    kernel A's)."""
+    from tpufem_torch.fem import stencil as st
+    from tpufem_torch.models.dataset import WingStressDataset
+    from tpufem_torch.models.sage import GraphSAGE, SAGEConfig
+    from tpufem_torch.models.train import GraphSet
+    from tpufem_torch.ops import gather_scatter as gs
+    from tpufem_torch.pipeline.config import get_paths
+    from tpufem_torch.scripts import (
+        generate_fem_dataset,
+        generate_geometry_dataset,
+        generate_mesh_dataset,
+        inference_gnn,
+        train_gnn,
+    )
+
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch, prefix="smoke_data_") as root:
+        paths = get_paths(root)
+        wall = {}
+
+        def cli(name, mod, argv):
+            t0 = time.perf_counter()
+            rc = mod.main([*argv, "--data_root", root])
+            torch.cuda.synchronize()
+            wall[name] = time.perf_counter() - t0
+            require(rc == 0, f"{name} CLI exited {rc}")
+
+        cli("geometry", generate_geometry_dataset,
+            ["--count", str(N_WINGS), "--seed", "7", "--no_glb"])
+        cli("mesh", generate_mesh_dataset,
+            ["--n_chord", "64", "--n_span", "80", "--n_thick", "6",
+             "--te_floor_frac", "0.006", "--spacing", "le"])
+        st.strain_apply.launches = 0
+        cli("fem", generate_fem_dataset,
+            ["--batched", "--batch_size", "8", "--tol", str(TOL), "--pressure", "5000",
+             "--no_glb", "--device", "cuda"])
+        fem_launches = st.strain_apply.launches
+        require(fem_launches > 0, "kernel B was not launched by the FEM CLI")
+        reps = [json.loads((paths.fem_case(f"{i:03d}") / "fem_report.json").read_text())
+                for i in range(1, N_WINGS + 1)]
+        for r in reps:
+            sv = r["extra"].get("solver", {})
+            require(r["status"] == "success" and sv.get("converged") is True
+                    and "batched_lane_failure" not in r["extra"],
+                    f"case {r['case_id']}: {r['status']} {r['failure_reason']}")
+            require(sv["rel_residual"] <= TOL, f"case {r['case_id']}: rel {sv['rel_residual']}")
+        rels = [r["extra"]["solver"]["rel_residual"] for r in reps]
+        iters = sorted({r["extra"]["solver"]["iters"] for r in reps})
+        write_s = sum(r["elapsed_ms"] for r in reps) / 1e3
+        print(f"[dataset] {N_WINGS} DOF100K wings, {N_WINGS}/{N_WINGS} converged, iters {iters}, "
+              f"max TRUE rel {max(rels):.3e} (bar {TOL}); kernel B launches {fem_launches}")
+        print(f"[dataset] s/wing: geometry {wall['geometry'] / N_WINGS:.4f}, mesh "
+              f"{wall['mesh'] / N_WINGS:.4f}, FEM solve {(wall['fem'] - write_s) / N_WINGS:.4f}, "
+              f"writing {write_s / N_WINGS:.4f} (FEM CLI wall {wall['fem']:.3f} s)")
+
+        gs.sorted_segment_sum.launches = 0
+        gs.segment_gather.launches = 0
+        cli("train", train_gnn, ["--epochs", str(EPOCHS), "--batch_size", "4",
+                                 "--device", "cuda"])
+        train_launches = {"sorted_segment_sum": gs.sorted_segment_sum.launches,
+                          "segment_gather": gs.segment_gather.launches}
+        print(f"[train] kernel launches during training: {train_launches}")
+        require(train_launches["sorted_segment_sum"] > 0, "kernel A not launched in training")
+        require(train_launches["segment_gather"] > 0, "kernel C not launched in training")
+        log = json.loads((paths.models / "training_log.json").read_text())
+        train_losses = [e["train_loss"] for e in log["log"]]
+        val_losses = [e["val_loss"] for e in log["log"]]
+        require(len(train_losses) == EPOCHS, f"{len(train_losses)} epochs run")
+        require(np.isfinite(train_losses + val_losses).all(), "non-finite loss")
+        require(train_losses[-1] < train_losses[0], f"train loss did not fall: {train_losses}")
+        epoch_s = [e["epoch_time_s"] for e in log["log"]]
+        ds = WingStressDataset(paths, seed=42)
+        n_split = {k: len(v) for k, v in ds.splits.items()}
+        steps = -(-n_split["train"] // 4)
+        print(f"[train] split {n_split}; {EPOCHS} epochs x {steps} steps at batch 4, "
+              f"SAGEConfig() width; train loss {train_losses}, val {val_losses}")
+        print(f"[train] s/epoch {epoch_s} (incl. validation); "
+              f"s/step {epoch_s[-1] / steps:.4f} (last epoch / steps); CLI wall "
+              f"{wall['train']:.3f} s")
+
+        gs.sorted_segment_sum.launches = 0
+        cli("inference", inference_gnn, ["--split", "test", "--no_glb", "--device", "cuda"])
+        require(gs.sorted_segment_sum.launches > 0, "kernel A not launched in inference")
+        test_ids = ds.splits["test"]
+        require(len(test_ids) == 3, f"test split {test_ids}")
+        inf_ms = []
+        for cid in test_ids:
+            pred = np.load(paths.fem_case(cid) / "pred_results.npz")["pred_pa"]
+            require(pred.ndim == 1 and len(pred) > 0 and np.isfinite(pred).all(),
+                    f"case {cid}: bad predictions")
+            rep = json.loads((paths.fem_case(cid) / "inference_report.json").read_text())
+            inf_ms.append(rep["inference_time_ms"])
+        summ = json.loads((paths.models / "inference_summary.json").read_text())
+        require(summ["num_cases"] == 3, f"inference summary {summ}")
+        print(f"[inference] {len(test_ids)} test wings, finite predictions; ms/wing "
+              f"{inf_ms} (incl. graph loading); masked MAE "
+              f"{summ['mae_mpa_masked_mean']:.3f} MPa after {EPOCHS} epochs")
+
+        graphs = ds.graphs("train")[:4]
+        check_gradients(dev, graphs)
+        batch = GraphSet(graphs, dev).batch(range(4))
+        model = GraphSAGE(SAGEConfig(), generator=torch.Generator().manual_seed(0), device=dev)
+        parts = time_step_parts(dev, model, batch)
+        print(f"[train] step parts on one merged batch (N={batch.x.shape[0]}, "
+              f"E={batch.edge_index.shape[1]}), median of 5: forward {parts['forward_s']:.4f} s, "
+              f"backward {parts['backward_s']:.4f} s, optimizer {parts['optimizer_s']:.4f} s")
+        kc = check_segment_gather(dev, batch)
+
+    for k in kernels:
+        if k["name"] == "sorted_segment_sum":
+            k["training_launches"] = train_launches["sorted_segment_sum"]
+    return [{"name": "segment_gather", "route": "cuda",
+             "source": "tpufem_torch/csrc/segment_sum.cu",
+             "replaces": "tpufem/ops/gather_scatter.py:173",
+             "launches": train_launches["segment_gather"], "max_abs_err": kc["max_abs_err"],
+             "ms": kc["ms"], "plain_ms": kc["plain_ms"], "E": kc["E"],
+             "step_parts_s": parts}]
 
 
 if __name__ == "__main__":

@@ -46,6 +46,49 @@ def test_segment_sum_kernel_matches_plain(cuda, C):
     assert err <= 1e-5 * ref.abs().max().item(), err
 
 
+def test_segment_gather_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(1)
+    E, N, C = 5000, 700, 128
+    seg = np.sort(np.concatenate([rng.integers(0, N, size=E - 40), np.full(40, N)]))
+    g = torch.as_tensor(rng.normal(size=(N, C)).astype(np.float32), device=cuda)
+    seg = torch.as_tensor(seg.astype(np.int32), device=cuda)
+    before = tgs.segment_gather.launches
+    out = tgs.segment_gather(g, seg, N)
+    out2 = tgs.segment_gather(g, seg, N)
+    torch.cuda.synchronize()
+    assert tgs.segment_gather.launches == before + 2
+    assert torch.equal(out, out2)
+    # a copy: bitwise equal to the plain version; dump rows are zero
+    assert torch.equal(out, tgs.segment_gather_plain(g, seg, N))
+    assert out[-40:].abs().max().item() == 0.0
+
+
+def test_sorted_segment_sum_gradients_on_cuda_match_cpu(cuda):
+    """The segment sum on a CUDA tensor is differentiable (kernel C), and the
+    gradients of the mean aggregation equal the CPU plain path's."""
+    rng = np.random.default_rng(2)
+    N, E, C = 300, 2000, 32
+    h = rng.normal(size=(N, C)).astype(np.float32)
+    ei = rng.integers(0, N, size=(2, E)).astype(np.int32)
+    em = (rng.uniform(size=E) > 0.2).astype(np.float32)
+    w = rng.normal(size=(N, C)).astype(np.float32)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        ht = torch.tensor(h, device=dev, requires_grad=True)
+        out = tgs.gather_mean_aggregate(ht, torch.as_tensor(ei, device=dev),
+                                        torch.as_tensor(em, device=dev), N)
+        assert out.grad_fn is not None
+        (out * torch.as_tensor(w, device=dev)).sum().backward()
+        grads.append(ht.grad.cpu())
+    before = tgs.segment_gather.launches
+    msgs = torch.ones((4, 2), device=cuda, requires_grad=True)
+    seg = torch.tensor([0, 0, 1, 2], dtype=torch.int32, device=cuda)
+    tgs.sorted_segment_sum(msgs, seg, 2).sum().backward()
+    assert tgs.segment_gather.launches == before + 1
+    assert msgs.grad.cpu().tolist() == [[1, 1], [1, 1], [1, 1], [0, 0]]
+    assert (grads[0] - grads[1]).abs().max().item() <= 1e-5 * grads[1].abs().max().item()
+
+
 def test_segment_sum_kernel_rejects_bad_input(cuda):
     msgs = torch.zeros((4, 2), dtype=torch.float64, device=cuda)
     with pytest.raises(TypeError):

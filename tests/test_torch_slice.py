@@ -150,7 +150,15 @@ def test_port_imports_without_jax():
         "tpufem_torch.fem.stencil_mg", "tpufem_torch.fem.driver", "tpufem_torch.models.graph",
         "tpufem_torch.ops.kernels", "tpufem_torch.ops.gather_scatter",
         "tpufem_torch.models.sage", "tpufem_torch.models.metrics",
-        "tpufem_torch.profile_solve",
+        "tpufem_torch.profile_solve", "tpufem_torch.utils.stl",
+        "tpufem_torch.pipeline.config", "tpufem_torch.pipeline.case_id",
+        "tpufem_torch.pipeline.reports", "tpufem_torch.pipeline.geometry_stage",
+        "tpufem_torch.pipeline.mesh_stage", "tpufem_torch.pipeline.fem_stage",
+        "tpufem_torch.models.dataset", "tpufem_torch.models.train", "tpufem_torch.scripts",
+        "tpufem_torch.scripts.generate_geometry_dataset",
+        "tpufem_torch.scripts.generate_mesh_dataset",
+        "tpufem_torch.scripts.generate_fem_dataset", "tpufem_torch.scripts.train_gnn",
+        "tpufem_torch.scripts.inference_gnn",
     ]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"

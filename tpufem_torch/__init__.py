@@ -5,14 +5,16 @@ JAX package stays the reference the port is tested against. This package
 imports torch, numpy and scipy only — never jax, flax, optax, pydantic or
 matplotlib, and nothing from ``tpufem`` (whose ``__init__`` imports JAX).
 
-What runs here today (the first slice): a batch of wing designs -> the
-DOF100K structured Kuhn-tet4 mesh -> the f64-outer multigrid-preconditioned
-CG solve (``fem.stencil_mg.WingStencilT``) -> von Mises -> surface graphs ->
-the GraphSAGE surrogate forward (``models.sage.GraphSAGE``).
+What runs here today: a batch of wing designs -> the DOF100K structured
+Kuhn-tet4 mesh -> the f64-outer multigrid-preconditioned CG solve
+(``fem.stencil_mg.WingStencilT``) -> von Mises -> surface graphs -> the
+GraphSAGE surrogate (``models.sage.GraphSAGE``); and the surrogate workflow
+around it: the dataset CLIs, training and inference (``scripts/``).
 
 Hand-written CUDA kernels (``csrc/``, built on first use into ``build/``):
-  - ``ops.gather_scatter.sorted_segment_sum``  (SAGE mean aggregation)
-  - ``fem.stencil.strain_apply``               (the FEM operator, f32 + f64)
+  - ``ops.gather_scatter.sorted_segment_sum``  (A: SAGE mean aggregation)
+  - ``ops.gather_scatter.segment_gather``      (C: its backward)
+  - ``fem.stencil.strain_apply``               (B: the FEM operator, f32 + f64)
 On a CPU tensor each wrapper runs its plain PyTorch version instead.
 """
 

@@ -223,3 +223,30 @@ def structured_wing_mesh(
             "num_span_stations": res.n_span + 1,
         },
     )
+
+
+def compute_tet_quality(mesh: Mesh) -> dict:
+    """Aspect-ratio quality metric, vectorized.
+
+    Same definition as reference meshing.py:516-593: AR = max_edge /
+    (2*sqrt(6)*inradius), inradius = 3V/A_total, degenerate -> 1e6;
+    quality_ok_ratio = share of tets with AR < 3.
+    """
+    v = mesh.nodes[mesh.tets]  # (T,4,3)
+    pairs = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
+    edges = np.stack([np.linalg.norm(v[:, i] - v[:, j], axis=1) for i, j in pairs], axis=1)
+    max_edge = edges.max(axis=1)
+    vol = np.abs(mesh.tet_volumes())
+    tri_ids = [(1, 2, 3), (0, 2, 3), (0, 1, 3), (0, 1, 2)]
+    area = sum(
+        0.5 * np.linalg.norm(np.cross(v[:, b] - v[:, a], v[:, c] - v[:, a]), axis=1)
+        for a, b, c in tri_ids
+    )
+    inradius = 3.0 * vol / np.maximum(area, 1e-300)
+    ar = np.where(inradius > 1e-300, max_edge / (2.0 * np.sqrt(6.0) * inradius), 1e6)
+    return {
+        "aspect_ratio_mean": float(ar.mean()),
+        "aspect_ratio_p95": float(np.percentile(ar, 95)),
+        "aspect_ratio_max": float(ar.max()),
+        "quality_ok_ratio": float((ar < 3.0).mean()),
+    }

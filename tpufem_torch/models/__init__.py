@@ -1,1 +1,1 @@
-"""Surrogate: surface graphs, GraphSAGE (nn.Module), metrics."""
+"""Surrogate: surface graphs, GraphSAGE (nn.Module), metrics, dataset, trainer."""

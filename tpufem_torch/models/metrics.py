@@ -1,10 +1,20 @@
-"""Pa-scale surrogate metrics (numpy) — port of the numpy part of
-``tpufem/models/metrics.py``: MAE, RMSE, max error and MAE relative to the
-true max stress, for all real nodes and for the loss-masked nodes."""
+"""Masked loss (torch) and Pa-scale surrogate metrics (numpy) — port of
+``tpufem/models/metrics.py``: the training loss is the MSE over loss-masked
+nodes; the metrics are MAE, RMSE, max error and MAE relative to the true max
+stress, for all real nodes and for the loss-masked nodes."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def masked_mse(pred, target, mask):
+    """Mean squared error over masked nodes along the last axis (one value
+    per graph of a (B, N) batch); 0 where the mask is empty."""
+    num = (mask * (pred - target) ** 2).sum(dim=-1)
+    den = mask.sum(dim=-1)
+    return torch.where(den > 0, num / torch.clamp(den, min=1.0), torch.zeros_like(num))
 
 
 def _subset_metrics(pred_pa: np.ndarray, true_pa: np.ndarray) -> dict:

@@ -7,10 +7,10 @@
 
 SAGEConv matches PyG's default: h' = W_l h_i + b + W_r mean_{j in N(i)} h_j.
 The mean aggregation always goes through the sorted segment sum
-(tpufem_torch.ops.gather_scatter; CUDA kernel A on the card). tpufem's two
-``aggregate_impl`` values split the TPU's VMEM-capped Pallas kernel from XLA
-scatter; here they name the same function, and the field stays in SAGEConfig
-so that configs round-trip.
+(tpufem_torch.ops.gather_scatter; CUDA kernels A forward and C backward on
+the card). tpufem's two ``aggregate_impl`` values split the TPU's
+VMEM-capped Pallas kernel from XLA scatter; here they name the same
+function, and the field stays in SAGEConfig so that configs round-trip.
 """
 
 from __future__ import annotations
@@ -69,7 +69,8 @@ class SAGEConv(nn.Module):
 class GraphSAGE(nn.Module):
     """Surface-node stress surrogate: (x (N,in_dim), edge_index (2,E) int32,
     edge_mask (E,)) -> (N,) log1p-stress prediction. Dropout is active only in
-    train() mode; serving runs in eval() mode.
+    train() mode, with its draws from `generator` when one is given (the
+    trainer's seeded one); serving runs in eval() mode.
 
     With a torch.Generator the weights are drawn from it (normal, fan-in
     scaled, zero biases) on the CPU, so a seed gives the same model on any
@@ -86,7 +87,6 @@ class GraphSAGE(nn.Module):
         self.ln = nn.ModuleList(
             nn.LayerNorm(cfg.hidden, eps=LAYERNORM_EPS) for _ in range(cfg.num_layers)
         )
-        self.dropout = nn.Dropout(cfg.dropout)
         self.dec1 = nn.Linear(cfg.hidden, cfg.decoder_hidden)
         self.dec2 = nn.Linear(cfg.decoder_hidden, 1)
         if generator is not None:
@@ -98,14 +98,22 @@ class GraphSAGE(nn.Module):
                             m.bias.zero_()
         self.to(device)
 
-    def forward(self, x, edge_index, edge_mask):
+    def _dropout(self, h, generator):
+        """flax.linen.Dropout: keep with probability 1-p, scale by 1/(1-p)."""
+        p = self.config.dropout
+        if not self.training or p == 0.0:
+            return h
+        keep = torch.rand(h.shape, generator=generator, device=h.device) >= p
+        return torch.where(keep, h / (1.0 - p), torch.zeros_like(h))
+
+    def forward(self, x, edge_index, edge_mask, generator=None):
         h = torch.relu(self.enc1(x))
         h = torch.relu(self.enc2(h))
         for conv, ln in zip(self.sage, self.ln):
             res = h
             h = conv(h, edge_index, edge_mask)
             h = torch.relu(ln(h))
-            h = self.dropout(h)
+            h = self._dropout(h, generator)
             h = h + res
         h = torch.relu(self.dec1(h))
         return self.dec2(h)[:, 0]

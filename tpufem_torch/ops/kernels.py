@@ -34,6 +34,9 @@ _SIGNATURES = {
     # (msgs, seg, out, E, C, num_segments, stream)
     "tpufem_sorted_segment_sum_f32": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                                       ctypes.c_int, _P],
+    # (g, seg, out, E, C, num_segments, stream)
+    "tpufem_segment_gather_f32": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                                  ctypes.c_int, _P],
     # (g, vol, us, y, B, NI, NK, NJ, lam, mu, stream)
     "tpufem_strain_apply_f32": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_int, ctypes.c_double, ctypes.c_double, _P],

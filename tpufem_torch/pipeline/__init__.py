@@ -1,1 +1,2 @@
-"""Pipeline constants shared by the mesher, graphs and samplers."""
+"""The dataset pipeline: paths, case ids, report schemas and writers, and the
+geometry / mesh / FEM stages the CLIs in ``tpufem_torch.scripts`` drive."""

@@ -1,0 +1,96 @@
+"""Where the time of one GraphSAGE training step goes, on one CUDA card.
+
+Builds 4 DOF100K surface graphs (seeded PRD wings, structured mesh; the
+stress target is seeded noise, which costs the same as a solved field),
+merges them into one training batch as Trainer does (N=46,080 padded nodes,
+E=275,968 padded edges) and runs full-width training steps (SAGEConfig():
+dropout on, clip 1.0, AdamW): five unprofiled steps for the step seconds, then
+five under torch.profiler. Prints the device's busy share of the profiled
+steps and device time by op; the full table goes to --out.
+
+Usage: python -m tpufem_torch.profile_train [--out PATH]
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from tpufem_torch.fem.driver import FemSolution, surface_results
+from tpufem_torch.mesher import DOF100K, structured_wing_mesh
+from tpufem_torch.models.graph import build_graph, pad_graph
+from tpufem_torch.models.sage import SAGEConfig
+from tpufem_torch.models.train import GraphSet, TrainConfig, Trainer
+from tpufem_torch.pipeline.types import PRD_RANGES
+from tpufem_torch.sets import build_boundary_sets
+
+_NAMES = ("span_m", "chord_m", "sweep_deg", "thickness_ratio")
+
+
+def seeded_graphs(n: int, seed: int = 0):
+    """n DOF100K surface graphs padded to multiples of 128, as the dataset pads."""
+    rng = np.random.default_rng(seed)
+    raw = []
+    for _ in range(n):
+        p = {k: float(rng.uniform(*PRD_RANGES[k])) for k in _NAMES}
+        mesh = structured_wing_mesh(*(p[k] for k in _NAMES), DOF100K)
+        sets = build_boundary_sets(mesh)
+        vm = rng.uniform(1e5, 1e7, size=len(mesh.nodes))
+        sol = FemSolution(u=np.zeros_like(mesh.nodes), stress6=np.zeros((len(vm), 6)), vm=vm,
+                          iters=0, rel_residual=0.0, converged=True)
+        faces = mesh.surf_faces[sets.surf_all_faces]
+        raw.append(build_graph(surface_results(mesh, sets, sol, p["span_m"]), faces, p))
+    n_max = -(-max(g.num_nodes for g in raw) // 128) * 128
+    e_max = -(-max(g.num_edges for g in raw) // 128) * 128
+    return [pad_graph(g, n_max, e_max) for g in raw]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None, help="file for the full by-op table")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_train: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    trainer = Trainer(TrainConfig(clip_norm=1.0, model=SAGEConfig()), device=dev)
+    model, opt = trainer.init()
+    batch = GraphSet(seeded_graphs(4), dev).batch(range(4))
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def steps(k):
+        for _ in range(k):
+            trainer._train_step(model, opt, None, batch, gen)
+        torch.cuda.synchronize()
+
+    steps(2)  # warm-up: cuBLAS handles, the kernel library
+    t0 = time.perf_counter()
+    steps(5)
+    wall = (time.perf_counter() - t0) / 5
+    print(f"[unprofiled] batch N={batch.x.shape[0]} E={batch.edge_index.shape[1]}: "
+          f"{wall * 1e3:.3f} ms per step (mean of 5)")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps(5)
+        pwall = time.perf_counter() - t0
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.time_range.elapsed_us() for e in dev_events) / 1e6
+    print(f"[profiled] 5 steps in {pwall:.3f} s; device busy {busy_s:.4f} s in "
+          f"{len(dev_events)} device activities ({len(dev_events) / 5:.0f} per step); "
+          f"{busy_s / pwall:.1%} of the profiled wall, {busy_s / (5 * wall):.1%} of the "
+          f"unprofiled wall")
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(table)
+    print("\n".join(table.splitlines()[:25]))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -28,6 +28,20 @@ class BoundarySets:
     nz_min_used: float
     upper_area_ratio: float
 
+    def to_json_dict(self, mesh: Mesh) -> dict:
+        """Artifact-compatible boundary_sets.json payload (reference meshing.py:728-752)."""
+        upper_nodes = np.unique(mesh.surf_faces[self.surf_upper_faces])
+        surf_nodes = np.unique(mesh.surf_faces[self.surf_all_faces])
+        return {
+            "nroot_nodes": self.nroot_nodes.tolist(),
+            "surf_all_nodes": surf_nodes.tolist(),
+            "surf_upper_nodes": upper_nodes.tolist(),
+            "surf_all_faces": self.surf_all_faces.tolist(),
+            "surf_upper_faces": self.surf_upper_faces.tolist(),
+            "nz_min_used": self.nz_min_used,
+            "upper_area_ratio": self.upper_area_ratio,
+        }
+
 
 def face_normals_areas(nodes: np.ndarray, faces: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Unit normals (as-wound) and areas of triangles."""
