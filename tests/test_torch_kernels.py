@@ -10,11 +10,16 @@ import numpy as np
 import pytest
 import torch
 
+from tpufem_torch.fem import assembly as tas
 from tpufem_torch.fem import stencil as tst
+from tpufem_torch.fem.driver import WingSolveConfig, solve_wing_case
+from tpufem_torch.fem.elements import tet4_setup
 from tpufem_torch.fem.material import Material, lame_params
 from tpufem_torch.fem.stencil_mg import WingStencilT
-from tpufem_torch.mesher import WingMeshResolution
+from tpufem_torch.mesher import COARSE, WingMeshResolution, structured_wing_mesh
+from tpufem_torch.ops import csr_segment_sum as tcs
 from tpufem_torch.ops import gather_scatter as tgs
+from tpufem_torch.sets import build_boundary_sets
 
 pytestmark = pytest.mark.gpu
 LAM, MU = lame_params(Material())
@@ -128,3 +133,72 @@ def test_solve_on_cuda_matches_cpu(cuda):
     assert bool(out_c.converged.all()) and bool(out_h.converged.all())
     u_c, u_h = out_c.u.cpu(), out_h.u
     assert (u_c - u_h).abs().max().item() <= 1e-7 * u_h.abs().max().item()
+
+
+def _tet_inputs(dev, dtype):
+    m = structured_wing_mesh(1.6, 0.30, 25.0, 0.07, WingMeshResolution(24, 16, 3, 0.006, "le"))
+    nodes = torch.as_tensor(m.nodes, dtype=torch.float64, device=dev)
+    tets = torch.as_tensor(m.tets, device=dev)
+    grads, vols = tet4_setup(nodes, tets)
+    u = torch.as_tensor(np.random.default_rng(3).normal(size=(m.num_nodes, 3)), device=dev)
+    return m, grads.to(dtype), vols.to(dtype), tets, u.to(dtype)
+
+
+def test_tet4_force_kernel_matches_plain(cuda):
+    m, grads, vols, tets, u = _tet_inputs(cuda, torch.float64)
+    before = tas.tet4_element_force.launches
+    fe = tas.tet4_element_force(grads, vols, tets, u, LAM, MU)
+    ref = tas.tet4_element_force_plain(grads, vols, tets, u, LAM, MU)
+    assert tas.tet4_element_force.launches == before + 1
+    assert (fe - ref).abs().max().item() <= 1e-12 * ref.abs().max().item()
+    assert torch.equal(fe, tas.tet4_element_force(grads, vols, tets, u, LAM, MU))
+    # f32: no worse than 2x the plain f32 version's error against f64
+    g32, v32, u32 = grads.float(), vols.float(), u.float()
+    e_k = (tas.tet4_element_force(g32, v32, tets, u32, LAM, MU).double() - ref).abs().max().item()
+    e_p = (tas.tet4_element_force_plain(g32, v32, tets, u32, LAM, MU).double() - ref).abs().max().item()
+    assert e_k <= 2.0 * e_p, (e_k, e_p)
+
+
+@pytest.mark.parametrize("C", [1, 3, 6, 24])
+def test_csr_segment_sum_kernel_matches_plain(cuda, C):
+    m, *_ = _tet_inputs(cuda, torch.float64)
+    plan = tcs.csr_plan(m.tets, m.num_nodes, cuda)
+    vals = torch.as_tensor(np.random.default_rng(C).normal(size=(m.tets.size, C)), device=cuda)
+    before = tcs.csr_segment_sum.launches
+    out = tcs.csr_segment_sum(vals, plan)
+    assert tcs.csr_segment_sum.launches == before + 1
+    ref = tcs.csr_segment_sum_plain(vals, plan)
+    assert (out - ref).abs().max().item() <= 1e-12 * ref.abs().max().item()
+    # no atomics: the same bits every run, in f32 and f64
+    assert torch.equal(out, tcs.csr_segment_sum(vals, plan))
+    v32 = vals.float()
+    o32 = tcs.csr_segment_sum(v32, plan)
+    assert torch.equal(o32, tcs.csr_segment_sum(v32, plan))
+    e_k = (o32.double() - ref).abs().max().item()
+    e_p = (tcs.csr_segment_sum_plain(v32, plan).double() - ref).abs().max().item()
+    assert e_k <= 2.0 * e_p, (e_k, e_p)
+
+
+def test_stencil_solves_are_bitwise_repeatable(cuda):
+    """Kernel E in the loads and the stress recovery: two solves of one batch
+    take the same iterations and give the same bits."""
+    res = WingMeshResolution(12, 10, 3, te_floor_frac=0.006, spacing="le")
+    solver = WingStencilT(res, device=cuda)
+    a = solver.solve(P4, tol=1e-8, maxiter=2000)
+    b = solver.solve(P4, tol=1e-8, maxiter=2000)
+    assert a.iters == b.iters
+    for f in ("u", "stress6", "vm"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_gather_solve_on_cuda_matches_cpu(cuda):
+    m = structured_wing_mesh(1.2, 0.35, 0.0, 0.10, COARSE)
+    bs = build_boundary_sets(m)
+    cfg = WingSolveConfig(pressure=100.0, dtype=torch.float64, tol=1e-10, maxiter=50000)
+    d0, e0 = tas.tet4_element_force.launches, tcs.csr_segment_sum.launches
+    sc = solve_wing_case(m, bs, cfg, device=cuda)
+    assert tas.tet4_element_force.launches > d0 and tcs.csr_segment_sum.launches > e0
+    sh = solve_wing_case(m, bs, cfg)
+    assert sc.converged and sh.converged
+    assert np.linalg.norm(sc.u - sh.u) <= 1e-7 * np.linalg.norm(sh.u)
+    assert np.abs(sc.vm - sh.vm).max() <= 1e-7 * np.abs(sh.vm).max()

@@ -158,7 +158,13 @@ def test_port_imports_without_jax():
         "tpufem_torch.scripts.generate_geometry_dataset",
         "tpufem_torch.scripts.generate_mesh_dataset",
         "tpufem_torch.scripts.generate_fem_dataset", "tpufem_torch.scripts.train_gnn",
-        "tpufem_torch.scripts.inference_gnn",
+        "tpufem_torch.scripts.inference_gnn", "tpufem_torch.fem.elements",
+        "tpufem_torch.fem.bc", "tpufem_torch.fem.loads", "tpufem_torch.fem.assembly",
+        "tpufem_torch.fem.vonmises", "tpufem_torch.fem.solver",
+        "tpufem_torch.ops.csr_segment_sum", "tpufem_torch.msh2", "tpufem_torch.utils.profiling",
+        "tpufem_torch.viz", "tpufem_torch.viz.glb", "tpufem_torch.viz.colormaps",
+        "tpufem_torch.viz.results", "tpufem_torch.viz.arrows", "tpufem_torch.pipeline.verify",
+        "tpufem_torch.profile_gather",
     ]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from tpufem_torch.mesher import WingMeshResolution, structured_wing_mesh, wing_topology
+from tpufem_torch.ops.csr_segment_sum import csr_plan, csr_segment_sum
 from tpufem_torch.sets import build_boundary_sets
 
 
@@ -64,6 +65,10 @@ class WingBatchT:
         self.upper = torch.as_tensor(
             topo.surf_faces[self.sets.surf_upper_faces].astype(np.int64), device=self.device
         )
+        # kernel E's plans for the per-node sums of loads and of stress: a
+        # fixed summation order, so two solves of one batch give the same bits
+        self.upper_plan = csr_plan(self.upper, self.num_nodes, self.device)
+        self.tet_plan = csr_plan(self.tets, self.num_nodes, self.device)
         free = np.ones((self.num_nodes, 3), np.float64)
         free[self.sets.nroot_nodes] = 0.0
         self.free64 = torch.as_tensor(free, device=self.device)  # (N,3)
@@ -93,10 +98,8 @@ class WingBatchT:
 
     def _recover(self, grads, vols, x, lam, mu):
         """(u, s6 (N,6,B), vm (N,B)): volume-weighted nodal average of the
-        element Voigt stress, and von Mises.
-
-        tpufem's segment_sum becomes index_add_. On CUDA its accumulation
-        order is not fixed; in f64 that costs ~1e-16 relative."""
+        element Voigt stress, and von Mises. tpufem's segment_sums are kernel
+        E over the tets' plan."""
         free = self.free64.to(x.dtype)[:, :, None]
         u = x * free
         ue = u[self.tets]  # (T,4,3,B)
@@ -111,12 +114,10 @@ class WingBatchT:
             dim=1,
         )  # (T,6,B)
         nb = vols.shape[-1]
-        idx = self.tets.reshape(-1)  # tet-major, corner-minor like tpufem
+        # rows tet-major, corner-minor like tpufem's tets.reshape(-1)
         contrib = (vols[:, None, :] * voigt)[:, None].expand(-1, 4, -1, -1)
-        num = torch.zeros((self.num_nodes, 6, nb), dtype=x.dtype, device=x.device)
-        num.index_add_(0, idx, contrib.reshape(-1, 6, nb))
-        den = torch.zeros((self.num_nodes, nb), dtype=x.dtype, device=x.device)
-        den.index_add_(0, idx, vols[:, None, :].expand(-1, 4, -1).reshape(-1, nb))
+        num = csr_segment_sum(contrib.reshape(-1, 6 * nb), self.tet_plan).reshape(-1, 6, nb)
+        den = csr_segment_sum(vols[:, None, :].expand(-1, 4, -1).reshape(-1, nb), self.tet_plan)
         s6 = num / torch.clamp(den, min=1e-30)[:, None, :]
         sxx, syy, szz, sxy, syz, szx = s6.unbind(1)
         vm = torch.sqrt(

@@ -34,6 +34,7 @@ from tpufem_torch.fem.stencil import (
 )
 from tpufem_torch.geometry import stations
 from tpufem_torch.mesher import WingMeshResolution
+from tpufem_torch.ops.csr_segment_sum import csr_segment_sum
 
 _LINE_OFFSETS = ((0, 0, -1), (0, 0, 0), (0, 0, 1))
 
@@ -398,16 +399,16 @@ class WingStencilT:
     def _loads_grid(self, nodes, pressure: float):
         """Pressure load vector in grid form from welded node coords (N,3,B).
 
-        tpufem's segment_sum becomes index_add_; in f64 its unfixed order on
-        CUDA costs ~1e-16 relative."""
+        tpufem's segment_sum is kernel E over the upper faces' plan: atomics
+        (index_add_) would change the f64 loads' last bits, and with them the
+        iteration count, from run to run."""
         bt = self.bt
         v = nodes[bt.upper]  # (F,3,3,B)
         area_vec = 0.5 * _cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
         f_vert = (-pressure / 3.0) * area_vec  # (F,3,B)
         nb = f_vert.shape[-1]
-        f3 = f_vert[:, None].expand(-1, 3, -1, -1).reshape(-1, 3, nb)
-        b = torch.zeros((bt.num_nodes, 3, nb), dtype=nodes.dtype, device=nodes.device)
-        b.index_add_(0, bt.upper.reshape(-1), f3)
+        f3 = f_vert[:, None].expand(-1, 3, -1, -1).reshape(-1, 3 * nb)
+        b = csr_segment_sum(f3, bt.upper_plan).reshape(-1, 3, nb)
         b = b * bt.free64.to(nodes.dtype)[:, :, None]
         return to_grid(self.res, b)
 

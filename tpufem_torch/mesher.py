@@ -67,6 +67,7 @@ class WingMeshResolution:
         return (self.n_chord, self.n_span, self.n_thick, self.te_floor_frac, self.spacing)
 
 
+COARSE = WingMeshResolution(12, 8, 2)
 MEDIUM = WingMeshResolution(32, 24, 4)
 # the batched-solve configuration: 64x80x6 cells, 109,107 DOF
 DOF100K = WingMeshResolution(64, 80, 6, te_floor_frac=0.006, spacing="le")

@@ -1,29 +1,35 @@
 """FEM stage driver — port of ``tpufem/pipeline/fem_stage.py`` (reference
-fem.py:427-762), stencil engine.
+fem.py:427-762, ``run_fem_case``).
 
 Artifacts in data/raw/fem/{case_id}/:
-  surface_results.npz  — node_id/pos/normal/stress_vm/disp/loss_mask
-  fem_report.json      — StepReport with solver info + all/masked percentile
-                         stress stats (fem.py:695-751)
+  surface_results.npz    — node_id/pos/normal/stress_vm/disp/loss_mask
+  wing_result.glb        — viridis-colored stress GLB
+  wing_result_arrows.glb — result + sampled pressure arrows
+  fem_report.json        — StepReport with solver info + all/masked percentile
+                           stress stats (fem.py:695-751)
 
-The solve is the port's WingStencilT (f64-outer MG-PCG, kernel B on the
-card) at B=1. Not ported yet: the result/arrow GLBs (the CLIs refuse to run
-without --no_glb) and the non-stencil rungs of tpufem's solve ladder (the
-gather driver, its refined and float64 retries; ROADMAP Queue 1 item 8). A
-case that would take one of those rungs fails with a reason that says so; it
-never falls back silently.
+The solve goes down tpufem's ladder, every rung on `device`: "stencil" (the
+port's WingStencilT at B=1, f64-outer MG-PCG with kernel B, for structured
+meshes when engine is auto or stencil), then the gather path
+(``solve_wing_case``: kernels D and E in every CG iteration) as "primary"
+(the config's dtype, line + RBM or Jacobi PCG), "refined" (f32 CG with f64
+residual refinement) and "float64". A rung that does not converge, or whose
+solution is not finite, hands over to the next: a numerical recovery, not a
+device fallback. A kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
-import time
 from functools import lru_cache
 
 import numpy as np
+import torch
 
-from tpufem_torch.fem.driver import FemSolution, WingSolveConfig, surface_results
+from tpufem_torch.fem.driver import FemSolution, WingSolveConfig, solve_wing_case, surface_results
 from tpufem_torch.fem.material import Material
+from tpufem_torch.fem.precond import NotPositiveDefiniteError
 from tpufem_torch.fem.stencil_mg import WingStencilT, hierarchy_resolutions
 from tpufem_torch.mesher import WingMeshResolution, wing_topology
 from tpufem_torch.pipeline.config import Paths
@@ -31,9 +37,10 @@ from tpufem_torch.pipeline.mesh_stage import load_mesh_npz
 from tpufem_torch.pipeline.reports import timed, write_report
 from tpufem_torch.pipeline.types import StepReport, WingParams
 from tpufem_torch.sets import BoundarySets
-
-LADDER_NOT_PORTED = ("the gather-driver rungs of the solve ladder (tpufem/fem/driver.py) "
-                     "are not ported to tpufem_torch yet")
+from tpufem_torch.utils.profiling import StageTimer, solver_stats
+from tpufem_torch.viz.arrows import make_pressure_arrows
+from tpufem_torch.viz.glb import GLBMesh
+from tpufem_torch.viz.results import surface_results_to_glb, surface_results_to_glb_with_extras
 
 
 def _stats(values: np.ndarray) -> dict:
@@ -49,11 +56,6 @@ def _stats(values: np.ndarray) -> dict:
         "p95": float(np.percentile(values, 95)),
         "p99": float(np.percentile(values, 99)),
     }
-
-
-def solver_stats(iters: int, rel_residual: float, converged: bool) -> dict:
-    return {"iters": int(iters), "rel_residual": float(rel_residual),
-            "converged": bool(converged)}
 
 
 def _stencil_resolution(paths: Paths, case_id: str):
@@ -100,22 +102,100 @@ def solve_structured_stencil(
     )
 
 
-def write_case_artifacts(case_dir, surf: dict) -> dict:
-    """Write surface_results.npz and return the report's stats blocks — the
+def write_case_artifacts(
+    case_dir,
+    case_id: str,
+    surf: dict,
+    faces_global: np.ndarray,
+    upper_faces_global: np.ndarray,
+    nodes: np.ndarray,
+    make_glb: bool = True,
+) -> dict:
+    """Write the per-case FEM artifact set and return the report blocks: the
     one writer the sequential and the batched paths both call, so every case
-    dir carries the same artifact and stats schema (fem.py:642-751)."""
+    dir carries the same artifacts and stats schema (fem.py:642-751)."""
     np.savez_compressed(case_dir / "surface_results.npz", **surf)
+    extra: dict = {}
+    if make_glb:
+        vmin, vmax = surface_results_to_glb(case_dir / "wing_result.glb", surf, faces_global)
+        av, af = make_pressure_arrows(nodes, upper_faces_global, case_id)
+        arrow_colors = np.tile(np.array([0.9, 0.45, 0.1, 1.0]), (len(av), 1))
+        surface_results_to_glb_with_extras(
+            case_dir / "wing_result_arrows.glb",
+            surf,
+            faces_global,
+            [GLBMesh(av, af, arrow_colors, name="pressure_arrows")],
+            vmin=vmin,
+            vmax=vmax,
+        )
+        extra["color_range"] = [vmin, vmax]
     masked = surf["stress_vm"][surf["loss_mask"]]
-    return {
-        "stress_stats": {
-            "all_nodes": _stats(surf["stress_vm"]),
-            "masked_nodes": _stats(masked),
-        },
-        "disp_stats": {
-            "max_abs_mm": float(np.abs(surf["disp"]).max() * 1e3),
-            "mean_z_mm": float(surf["disp"][:, 2].mean() * 1e3),
-        },
+    extra["stress_stats"] = {
+        "all_nodes": _stats(surf["stress_vm"]),
+        "masked_nodes": _stats(masked),
     }
+    extra["disp_stats"] = {
+        "max_abs_mm": float(np.abs(surf["disp"]).max() * 1e3),
+        "mean_z_mm": float(surf["disp"][:, 2].mean() * 1e3),
+    }
+    return extra
+
+
+def case_artifacts(case_dir) -> dict:
+    """The report's artifacts block: the FEM files that exist in case_dir."""
+    return {
+        k: str(p)
+        for k, p in {
+            "surface_results": case_dir / "surface_results.npz",
+            "wing_result_glb": case_dir / "wing_result.glb",
+            "wing_result_arrows_glb": case_dir / "wing_result_arrows.glb",
+        }.items()
+        if p.exists()
+    }
+
+
+def solve_ladder(params: WingParams, mesh, bs: BoundarySets, cfg: WingSolveConfig,
+                 stencil_res, device, timer: StageTimer):
+    """tpufem's recovery ladder (its version of the spec'd retry policy,
+    docs/spec.md:240-250): stencil (when `stencil_res`), primary, then for a
+    non-f64 config refined and float64. Returns (solution of the last
+    attempt, attempts)."""
+    ladder = []
+    if stencil_res is not None:
+        ladder.append(("stencil", cfg,
+                       lambda c: solve_structured_stencil(params, stencil_res, c, device)))
+
+    def gather(c):
+        return solve_wing_case(mesh, bs, c, device)
+
+    ladder.append(("primary", cfg, gather))
+    if cfg.dtype != torch.float64:
+        ladder.append(("refined",
+                       dataclasses.replace(cfg, refine_steps=max(cfg.refine_steps, 2)), gather))
+        ladder.append(("float64", dataclasses.replace(cfg, dtype=torch.float64, refine_steps=0),
+                       gather))
+    attempts = []
+    sol = None
+    for name, c, solve_fn in ladder:
+        error = None
+        with timer.span(f"solve_{name}"):
+            try:
+                sol = solve_fn(c)
+            except NotPositiveDefiniteError as e:  # the preconditioner broke down
+                error = str(e)
+        if error is None:
+            ok = bool(np.isfinite(sol.u).all() and np.isfinite(sol.vm).all() and sol.converged)
+            stats = solver_stats(sol.iters, sol.rel_residual, sol.converged)
+        else:
+            sol = None
+            ok = False
+            # no CG step was taken: x = 0, so the residual is b itself
+            stats = {**solver_stats(0, 1.0, False), "error": error}
+        attempts.append({"attempt": name, "dtype": str(c.dtype).removeprefix("torch."),
+                         "ok": ok, **stats})
+        if ok:
+            break
+    return sol, attempts
 
 
 def run_fem_case(
@@ -126,6 +206,7 @@ def run_fem_case(
     material: Material = Material(),
     solve_config: WingSolveConfig | None = None,
     force: bool = False,
+    make_glb: bool = True,
     device: str = "cuda",
 ) -> StepReport:
     mesh_dir = paths.mesh_case(case_id)
@@ -152,27 +233,44 @@ def run_fem_case(
                     raise ValueError("empty NROOT or SURF_UPPER set")
 
                 cfg = solve_config or WingSolveConfig(pressure=pressure, material=material)
-                # the ladder's first rung: the stencil-grid MG engine (B=1)
-                # for structured wing meshes; every later rung is not ported
-                res = _stencil_resolution(paths, case_id)
-                if res is not None and wing_topology(res).num_nodes != mesh.num_nodes:
-                    res = None  # user mesh under a stale report
-                if res is None:
-                    raise NotImplementedError(
-                        f"case needs a non-stencil solve: {LADDER_NOT_PORTED}")
-                t0 = time.perf_counter()
-                sol = solve_structured_stencil(params, res, cfg, device)
-                extra["spans"] = {"solve_stencil_ms": round((time.perf_counter() - t0) * 1e3, 3)}
+                stencil_res = (_stencil_resolution(paths, case_id)
+                               if cfg.engine in ("auto", "stencil") else None)
+                if stencil_res is not None and (
+                        "station_id" not in mesh.meta
+                        or wing_topology(stencil_res).num_nodes != mesh.num_nodes):
+                    # a user mesh: the stencil engine would solve the
+                    # parametric wing of `params`, not this mesh (tpufem
+                    # checks the node count alone)
+                    stencil_res = None
+                timer = StageTimer()
+                sol, attempts = solve_ladder(params, mesh, bs, cfg, stencil_res, device, timer)
+                if len(attempts) > 1:
+                    extra["solve_ladder"] = attempts
+                if sol is None:
+                    raise ValueError(f"preconditioner breakdown: {attempts[-1]['error']} "
+                                     f"(after {len(attempts)} ladder attempts)")
                 if not np.isfinite(sol.u).all() or not np.isfinite(sol.vm).all():
-                    raise ValueError(f"nan/inf in solution; {LADDER_NOT_PORTED}")
+                    raise ValueError("nan/inf in solution")  # fem.py:620-631 parity
                 if not sol.converged:
                     raise ValueError(
-                        f"PCG not converged: rel_res {sol.rel_residual:.2e} after "
-                        f"{sol.iters} iters; {LADDER_NOT_PORTED}"
+                        f"PCG not converged: rel_res {sol.rel_residual:.2e} after {sol.iters} "
+                        f"iters (after {len(attempts)} ladder attempts)"
                     )
+
                 surf = surface_results(mesh, bs, sol, span_m=params.span_m)
-                extra.update(write_case_artifacts(case_dir, surf))
+                extra.update(
+                    write_case_artifacts(
+                        case_dir,
+                        case_id,
+                        surf,
+                        mesh.surf_faces[bs.surf_all_faces],
+                        mesh.surf_faces[bs.surf_upper_faces],
+                        mesh.nodes,
+                        make_glb=make_glb,
+                    )
+                )
                 extra["solver"] = solver_stats(sol.iters, sol.rel_residual, sol.converged)
+                extra["spans"] = timer.report()
             status, reason = "success", None
         except Exception as e:  # noqa: BLE001 — stage reports failures, never raises
             status, reason = "failed", f"{type(e).__name__}: {e}"
@@ -183,7 +281,7 @@ def run_fem_case(
         status=status,
         failure_reason=reason,
         elapsed_ms=t["elapsed_ms"],
-        artifacts={"surface_results": str(npz_path)} if npz_path.exists() else {},
+        artifacts=case_artifacts(case_dir),
         extra=extra,
     )
     write_report(case_dir, report)

@@ -3,9 +3,9 @@
 sampling in the PRD ranges, sequential case ids 001..N overriding the hash,
 params.csv + manifest geometry_index + last_run summary.
 
-    python -m tpufem_torch.scripts.generate_geometry_dataset --count 16 --seed 7 --no_glb
+    python -m tpufem_torch.scripts.generate_geometry_dataset --count 16 --seed 7
 
-The preview GLB is not ported yet, so --no_glb is required.
+Each case also gets the gray preview wing_viz.glb unless --no_glb.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import time
 import numpy as np
 
 from tpufem_torch.pipeline.config import get_paths
-from tpufem_torch.pipeline.geometry_stage import GLB_NOT_PORTED, run_geometry_case
+from tpufem_torch.pipeline.geometry_stage import run_geometry_case
 from tpufem_torch.pipeline.reports import append_csv, append_manifest_index, update_manifest
 from tpufem_torch.pipeline.types import PRD_RANGES, WingParams
 
@@ -40,8 +40,6 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--no_glb", action="store_true")
     args = ap.parse_args(argv)
-    if not args.no_glb:
-        ap.error(GLB_NOT_PORTED)
 
     paths = get_paths(args.data_root).ensure()
     rng = np.random.default_rng(args.seed)
@@ -51,7 +49,9 @@ def main(argv: list[str] | None = None) -> int:
     for i in range(1, args.count + 1):
         params = sample_params(rng)
         case_id = f"{i:03d}" if args.sequential_ids else None
-        rep = run_geometry_case(params, paths, case_id=case_id, force=args.force)
+        rep = run_geometry_case(
+            params, paths, case_id=case_id, force=args.force, make_glb=not args.no_glb
+        )
         n_ok += rep.status == "success"
         print(f"[{i}/{args.count}] {rep.case_id} {rep.status}"
               + (f" ({rep.failure_reason})" if rep.failure_reason else ""))

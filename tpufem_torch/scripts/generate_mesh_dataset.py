@@ -6,8 +6,8 @@ cache hits skip completed cases.
     python -m tpufem_torch.scripts.generate_mesh_dataset \\
         --n_chord 64 --n_span 80 --n_thick 6 --te_floor_frac 0.006 --spacing le
 
-The debug surf_sets.glb that tpufem's mesh stage writes is not ported yet;
-the run says so once and writes mesh.npz, boundary_sets.json and reports.
+Each case gets mesh.npz, boundary_sets.json, the debug surf_sets.glb and its
+report.
 """
 
 from __future__ import annotations
@@ -56,7 +56,6 @@ def main(argv: list[str] | None = None) -> int:
     if args.limit:
         rows = rows[: args.limit]
 
-    print("note: surf_sets.glb (debug GLB) is not ported to tpufem_torch yet; not written")
     t0 = time.time()
     n_ok = 0
     entries = []

@@ -1,12 +1,14 @@
 """Surrogate inference CLI — port of ``scripts/inference_gnn.py`` (reference
 scripts/inference_gnn.py:91-423).
 
-    python -m tpufem_torch.scripts.inference_gnn --split test --no_glb --device cuda
+    python -m tpufem_torch.scripts.inference_gnn --split test --device cuda
 
 Per case: load checkpoint + config, forward, expm1 de-scaling, metrics,
-pred_results.npz and inference_report.json per case, and an aggregate
-data/models/inference_summary.json. The prediction/error GLBs are not ported
-yet, so --no_glb is required.
+``wing_pred.glb`` with the unified colorbar = FEM masked [min, p98] range
+(reference :136-146), ``wing_error.glb`` with the 'hot' colormap scaled to
+the max error (:201-215), pred_results.npz and inference_report.json per
+case, and an aggregate data/models/inference_summary.json. --no_glb skips
+the GLBs.
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ from tpufem_torch.models.dataset import WingStressDataset, load_case_graph
 from tpufem_torch.models.metrics import compute_metrics
 from tpufem_torch.models.train import TrainConfig, Trainer
 from tpufem_torch.pipeline.config import get_paths
-from tpufem_torch.pipeline.geometry_stage import GLB_NOT_PORTED
 from tpufem_torch.scripts import device_arg
+from tpufem_torch.viz.colormaps import hot
+from tpufem_torch.viz.results import color_range_from_masked, surface_results_to_glb
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -36,8 +39,6 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device of the forward (default cuda; raises without one)")
     args = ap.parse_args(argv)
-    if not args.no_glb:
-        ap.error(GLB_NOT_PORTED)
     device = device_arg(args.device)
 
     paths = get_paths(args.data_root)
@@ -61,6 +62,22 @@ def main(argv: list[str] | None = None) -> int:
 
         fem_dir = paths.fem_case(cid)
         surf = dict(np.load(fem_dir / "surface_results.npz"))
+        if not args.no_glb:
+            mesh_npz = np.load(paths.mesh_case(cid) / "mesh.npz")
+            sets = json.loads((paths.mesh_case(cid) / "boundary_sets.json").read_text())
+            faces = mesh_npz["surf_faces"][np.asarray(sets["surf_all_faces"], dtype=np.int64)]
+            # unified colorbar: FEM ground-truth masked [min, p98] (reference :136-146)
+            vmin, vmax = color_range_from_masked(surf["stress_vm"], surf["loss_mask"])
+            surface_results_to_glb(
+                fem_dir / "wing_pred.glb", surf, faces,
+                values=pred_pa.astype(np.float32), vmin=vmin, vmax=vmax,
+            )
+            err = np.abs(pred_pa - surf["stress_vm"].astype(np.float64))
+            surface_results_to_glb(
+                fem_dir / "wing_error.glb", surf, faces,
+                values=err.astype(np.float32), vmin=0.0, vmax=float(err.max() or 1.0),
+                colormap=hot,
+            )
         # persist predictions so the dashboard can overlay FEM vs AI
         # histograms without re-running the model (reference app.py:306-391)
         np.savez_compressed(
