@@ -9,9 +9,12 @@ trained checkpoint exists). Along the way:
 
   1. builds the CUDA kernels from tpufem_torch/csrc (nvcc, into build/) and
      prints the card's name and power limit;
-  2. checks kernel B (strain_apply) against its plain PyTorch version at
-     DOF100K, B=8, in f64 and f32, with both times, and in f32 at each
-     coarser V-cycle level that applies it;
+  2. checks kernel B (strain_apply, the whole welded and Dirichlet-wrapped
+     operator in one launch) against its plain PyTorch version in f64 and f32
+     at every V-cycle level that applies it, at DOF100K B=8 and at MEDIUM
+     (sharp TE) B=1, bitwise repeatable; then at DOF100K its single-call
+     times, its device time per launch from a torch.profiler window against
+     the byte bound, and its device activities per apply (exactly 1);
   3. solves, and recomputes the TRUE f64 residual independently on the CPU
      (plain strain_apply, numpy loads); checks the physics;
   4. runs the surrogate on all 8 surface graphs through kernel A
@@ -85,6 +88,21 @@ def median_ms(fn, runs=7):
     return float(np.median(times))
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, flops, dtype):
+    """The least time the card could take for a kernel's work: its bytes
+    (each input read once, each output written once) over the memory rate, or
+    its arithmetic over the rate for `dtype` outside the tensor cores,
+    whichever is larger (NVIDIA H100 SXM data sheet)."""
+    from tpufem_torch.device import HBM_BYTES_PER_S, PEAK_FLOPS
+
+    tb, to = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return {"bound_ms": max(tb, to) * 1e3, "bound_by": "bytes" if tb >= to else "operations"}
+
+
 def require_glb(path):
     """The file exists and parses as a binary glTF with at least one mesh."""
     from tpufem_torch.viz.glb import read_glb
@@ -99,74 +117,78 @@ def sample_params(rng, n, prd):
 
 
 def check_strain_apply(dev, res, p4):
-    """Kernel B against strain_apply_plain at the main path's shapes."""
+    """Kernel B against strain_apply_plain in f64 and f32 at every V-cycle
+    level of `res` that applies it (B=8) and of MEDIUM, sharp TE (B=1, as the
+    FEM stage solves it); then, at `res`, its single-call times and, from a
+    short torch.profiler window, its device time per launch against the byte
+    bound and the device activities per apply (exactly 1: the weld spread and
+    reduce, the mask and the Dirichlet identity are inside the kernel)."""
     from tpufem_torch.fem import stencil as st
     from tpufem_torch.fem.material import Material, lame_params
+    from tpufem_torch.fem.stencil_mg import hierarchy_resolutions
+    from tpufem_torch.mesher import MEDIUM
+    from tpufem_torch.profile_operator import operator_inputs, profile_apply
 
     lam, mu = lame_params(Material())
-    X = st.nodes_grid(res, torch.as_tensor(p4, device=dev), torch.float64)
-    geo = st.cell_geometry(res, X)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    u = torch.randn(X.shape, generator=gen, dtype=torch.float64, device=dev)
-    free = torch.ones((1, 1, 1, 1, res.n_span + 1), dtype=torch.float64, device=dev)
-    free[..., 0] = 0.0
-    y = st.strain_apply(res, geo, u, free, lam, mu)
-    ref = st.strain_apply_plain(res, geo, u, free, lam, mu)
-    torch.cuda.synchronize()
-    err64 = (y - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    require(err64 <= 1e-12 * scale, f"kernel B f64 disagrees: {err64:.3e} vs scale {scale:.3e}")
-    require(torch.equal(y, st.strain_apply(res, geo, u, free, lam, mu)), "kernel B not deterministic")
-    geo32 = tuple(t.float() for t in geo)
-    u32, free32 = u.float(), free.float()
-    y32 = st.strain_apply(res, geo32, u32, free32, lam, mu)
-    p32 = st.strain_apply_plain(res, geo32, u32, free32, lam, mu)
-    e_k = (y32.double() - ref).abs().max().item()
-    e_p = (p32.double() - ref).abs().max().item()
-    require(e_k <= 2.0 * e_p, f"kernel B f32 error {e_k:.3e} > 2x plain f32 error {e_p:.3e}")
-    coarse = check_strain_apply_levels(dev, res, p4, lam, mu)
-    t = {
-        "ms": median_ms(lambda: st.strain_apply(res, geo, u, free, lam, mu)),
-        "plain_ms": median_ms(lambda: st.strain_apply_plain(res, geo, u, free, lam, mu)),
-        "ms_f32": median_ms(lambda: st.strain_apply(res, geo32, u32, free32, lam, mu)),
-        "plain_ms_f32": median_ms(lambda: st.strain_apply_plain(res, geo32, u32, free32, lam, mu)),
-    }
-    print(f"[kernel B] strain_apply {res.key} B={p4.shape[0]}: f64 max|err| {err64:.3e} "
-          f"(scale {scale:.3e}, bar 1e-12 rel); f32 err vs f64 {e_k:.3e} "
-          f"(plain f32 {e_p:.3e}, bar 2x)")
-    for key, (ek, ep) in coarse.items():
-        print(f"[kernel B] V-cycle level {key} f32: err vs f64 {ek:.3e} (plain f32 {ep:.3e}, bar 2x)")
-    print(f"[kernel B] f64 {t['ms']:.4f} ms vs plain {t['plain_ms']:.4f} ms; "
-          f"f32 {t['ms_f32']:.4f} ms vs plain {t['plain_ms_f32']:.4f} ms (median of 7)")
-    return {"max_abs_err": err64, "max_abs_err_f32": e_k,
-            "levels_f32": {str(k): {"max_abs_err": v[0], "plain_max_abs_err": v[1]}
-                           for k, v in coarse.items()}, **t}
+    levels = {}
+    for grid, batch in ((res, p4), (MEDIUM, p4[:1])):
+        for r in hierarchy_resolutions(grid)[:-1]:  # the coarsest is a dense inverse
+            levels[f"{r.key} B={batch.shape[0]}"] = check_strain_apply_level(
+                dev, r, batch, lam, mu)
+    for key, v in levels.items():
+        print(f"[kernel B] {key}: f64 max|err| {v['f64']['max_abs_err']:.3e} (scale "
+              f"{v['f64']['scale']:.3e}, bar 1e-12 rel); f32 err vs f64 "
+              f"{v['f32']['max_abs_err']:.3e} (plain f32 {v['f32']['plain_max_abs_err']:.3e}, "
+              f"bar 2x); bitwise repeatable in both")
+
+    lvl0 = levels[f"{res.key} B={p4.shape[0]}"]
+    t = {}
+    for dt, name in ((torch.float64, "f64"), (torch.float32, "f32")):
+        geo, u, free = operator_inputs(res, p4, dt, dev)
+        prof = profile_apply(res, geo, u, free, lam, mu)
+        require(prof["activities_per_apply"] == 1 and prof["launches"] == 1,
+                f"kernel B {name}: {prof['activities_per_apply']} device activities and "
+                f"{prof['launches']} kernel launches per apply, not 1")
+        t[name] = {"max_abs_err": lvl0[name]["max_abs_err"],
+                   "ms": median_ms(lambda: st.strain_apply(res, geo, u, free, lam, mu)),
+                   "plain_ms": median_ms(lambda: st.strain_apply_plain(res, geo, u, free, lam, mu)),
+                   **{k: prof[k] for k in ("device_us", "bound_us", "bound_by", "share",
+                                           "activities_per_apply")}}
+        p = t[name]
+        print(f"[kernel B] {res.key} B={p4.shape[0]} {name}: {p['device_us']:.2f} us of device "
+              f"time per launch (torch.profiler), bound {p['bound_us']:.2f} us ({p['bound_by']}): "
+              f"{p['share']:.1%} of the bound; {p['activities_per_apply']:.0f} device activity per "
+              f"apply; single call {p['ms']:.4f} ms vs plain {p['plain_ms']:.4f} ms (median of 7)")
+    return {"levels": levels, **t}
 
 
-def check_strain_apply_levels(dev, res, p4, lam, mu):
-    """Kernel B f32 against the plain f32 version, both judged against the
-    plain f64 result, at the coarser V-cycle levels that apply it (all but
-    the finest, checked above, and the coarsest, a dense inverse)."""
+def check_strain_apply_level(dev, r, p4, lam, mu):
+    """Kernel B at grid r on the batch p4: f64 within 1e-12 of the largest
+    plain f64 force; f32 error against that f64 result no worse than 2x the
+    plain f32 version's; the same bits twice in both."""
     from tpufem_torch.fem import stencil as st
-    from tpufem_torch.fem.stencil_mg import hierarchy_resolutions
+    from tpufem_torch.profile_operator import operator_inputs
 
+    geo, u, free = operator_inputs(r, p4, torch.float64, dev, seed=2)
+    ref = st.strain_apply_plain(r, geo, u, free, lam, mu)
+    scale = ref.abs().max().item()
     out = {}
-    gen = torch.Generator(device=dev).manual_seed(2)
-    for r in hierarchy_resolutions(res)[1:-1]:
-        X = st.nodes_grid(r, torch.as_tensor(p4, device=dev), torch.float64)
-        geo = st.cell_geometry(r, X)
-        u = torch.randn(X.shape, generator=gen, dtype=torch.float64, device=dev)
-        free = torch.ones((1, 1, 1, 1, r.n_span + 1), dtype=torch.float64, device=dev)
-        free[..., 0] = 0.0
-        ref = st.strain_apply_plain(r, geo, u, free, lam, mu)
-        geo32 = tuple(t.float() for t in geo)
-        y32 = st.strain_apply(r, geo32, u.float(), free.float(), lam, mu)
-        p32 = st.strain_apply_plain(r, geo32, u.float(), free.float(), lam, mu)
-        e_k = (y32.double() - ref).abs().max().item()
-        e_p = (p32.double() - ref).abs().max().item()
-        require(e_k <= 2.0 * e_p,
-                f"kernel B f32 at {r.key}: error {e_k:.3e} > 2x plain f32 error {e_p:.3e}")
-        out[r.key] = (e_k, e_p)
+    for dt, name in ((torch.float64, "f64"), (torch.float32, "f32")):
+        geo_d, u_d, free_d = tuple(t.to(dt) for t in geo), u.to(dt), free.to(dt)
+        y = st.strain_apply(r, geo_d, u_d, free_d, lam, mu)
+        torch.cuda.synchronize()
+        require(torch.equal(y, st.strain_apply(r, geo_d, u_d, free_d, lam, mu)),
+                f"kernel B {name} at {r.key}: two applies differ")
+        err = (y.double() - ref).abs().max().item()
+        if dt == torch.float64:
+            require(err <= 1e-12 * scale, f"kernel B f64 at {r.key}: {err:.3e} vs scale {scale:.3e}")
+            out[name] = {"max_abs_err": err, "scale": scale}
+        else:
+            e_p = (st.strain_apply_plain(r, geo_d, u_d, free_d, lam, mu).double()
+                   - ref).abs().max().item()
+            require(err <= 2.0 * e_p,
+                    f"kernel B f32 at {r.key}: error {err:.3e} > 2x plain f32 error {e_p:.3e}")
+            out[name] = {"max_abs_err": err, "plain_max_abs_err": e_p}
     return out
 
 
@@ -204,10 +226,15 @@ def check_segment_sum(dev, graphs):
                     "kernel A not deterministic")
             ms = median_ms(lambda: gs.sorted_segment_sum(msgs, seg, N))
             plain_ms = median_ms(lambda: gs.sorted_segment_sum_plain(msgs, seg, N))
+            acc, seg_l = torch.zeros((N + 1, C), device=dev), seg.long()
+            library_ms = median_ms(lambda: acc.index_add_(0, seg_l, msgs))
+            bd = bound(nbytes(msgs, seg, y), msgs.numel(), torch.float32)
             print(f"[kernel A] {label}: E={msgs.shape[0]} C={C} N={N}: max|err| {err:.3e} "
-                  f"(scale {scale:.3e}, bar 1e-5 rel); {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+                  f"(scale {scale:.3e}, bar 1e-5 rel); {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+                  f"index_add_ {library_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+                  f"({bd['bound_by']})")
             out[(label, C)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                               "E": msgs.shape[0]}
+                               "library_ms": library_ms, **bd, "E": msgs.shape[0]}
     return out
 
 
@@ -387,16 +414,23 @@ def run(dev, res, batch):
     one = ka[("one graph", 128)]
     state = {"solver": solver, "p4": p4, "out": out,
              "stencil_csr_launches": launches["csr_segment_sum"]}
+    b64, b32 = kb["f64"], kb["f32"]
     return [
         {"name": "sorted_segment_sum", "route": "cuda", "source": "tpufem_torch/csrc/segment_sum.cu",
          "replaces": "tpufem/ops/gather_scatter.py:49", "launches": launches["sorted_segment_sum"],
          "max_abs_err": one["max_abs_err"], "ms": one["ms"], "plain_ms": one["plain_ms"],
+         "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+         "library_ms": one["library_ms"],
          "shapes": {f"{lbl} C={c}": v for (lbl, c), v in ka.items()}},
         {"name": "strain_apply", "route": "cuda", "source": "tpufem_torch/csrc/strain_apply.cu",
          "replaces": "tpufem/fem/stencil.py:249", "launches": launches["strain_apply"],
-         "max_abs_err": kb["max_abs_err"], "ms": kb["ms"], "plain_ms": kb["plain_ms"],
-         "f32": {"max_abs_err": kb["max_abs_err_f32"], "ms": kb["ms_f32"],
-                 "plain_ms": kb["plain_ms_f32"], "coarse_levels": kb["levels_f32"]}},
+         "max_abs_err": b64["max_abs_err"], "ms": b64["ms"], "plain_ms": b64["plain_ms"],
+         "bound_ms": b64["bound_us"] / 1e3, "bound_by": b64["bound_by"], "library_ms": None,
+         "bound_us": b64["bound_us"], "device_us": b64["device_us"],
+         "activities_per_apply": b64["activities_per_apply"],
+         "f32": {k: b32[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_us", "device_us",
+                                     "activities_per_apply")},
+         "levels": kb["levels"]},
     ], state
 
 
@@ -475,10 +509,15 @@ def check_segment_gather(dev, batch):
     require(torch.equal(out, gs.segment_gather(g, seg, N)), "kernel C not deterministic")
     ms = median_ms(lambda: gs.segment_gather(g, seg, N))
     plain_ms = median_ms(lambda: gs.segment_gather_plain(g, seg, N))
+    g_pad = torch.cat([g, torch.zeros((1, g.shape[1]), device=dev)])
+    idx = torch.clamp(seg.long(), 0, N)
+    library_ms = median_ms(lambda: torch.index_select(g_pad, 0, idx))
+    bd = bound(nbytes(g, seg, out), 0, torch.float32)
     print(f"[kernel C] segment_gather merged batch: E={seg.shape[0]} C=128 N={N}: bitwise "
-          f"equal to plain, deterministic; {ms:.4f} ms vs plain {plain_ms:.4f} ms (median of 7)")
+          f"equal to plain, deterministic; {ms:.4f} ms vs plain {plain_ms:.4f} ms, index_select "
+          f"{library_ms:.4f} ms (median of 7), bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     return {"max_abs_err": (out - plain).abs().max().item(), "ms": ms, "plain_ms": plain_ms,
-            "E": seg.shape[0]}
+            "library_ms": library_ms, **bd, "E": seg.shape[0]}
 
 
 def run_training_path(dev, kernels):
@@ -610,7 +649,8 @@ def run_training_path(dev, kernels):
              "source": "tpufem_torch/csrc/segment_sum.cu",
              "replaces": "tpufem/ops/gather_scatter.py:173",
              "launches": train_launches["segment_gather"], "max_abs_err": kc["max_abs_err"],
-             "ms": kc["ms"], "plain_ms": kc["plain_ms"], "E": kc["E"],
+             "ms": kc["ms"], "plain_ms": kc["plain_ms"], "bound_ms": kc["bound_ms"],
+             "bound_by": kc["bound_by"], "library_ms": kc["library_ms"], "E": kc["E"],
              "step_parts_s": parts}]
 
 
@@ -620,6 +660,12 @@ def run_training_path(dev, kernels):
 def timed_pair(fn, plain):
     """(ms, plain_ms): medians of 7, kernel and plain version in turns."""
     return median_ms(fn), median_ms(plain)
+
+
+# kernel D's arithmetic per tet (tet4_force.cu): H = sum_a g_a (x) u_a, 36
+# FMA (72); sigma (24); the 12 forces, a 3-term dot (5) and a scale by vol (1)
+# each (72)
+TET4_FORCE_FLOPS = 168
 
 
 def check_tet4_force(grads, vols, tets, u, lam, mu):
@@ -643,11 +689,13 @@ def check_tet4_force(grads, vols, tets, u, lam, mu):
                               lambda: asm.tet4_element_force_plain(grads, vols, tets, u, lam, mu))
     ms32, plain32 = timed_pair(lambda: asm.tet4_element_force(g32, v32, tets, u32, lam, mu),
                                lambda: asm.tet4_element_force_plain(g32, v32, tets, u32, lam, mu))
+    bd = bound(nbytes(grads, vols, tets, u, fe), TET4_FORCE_FLOPS * tets.shape[0], torch.float64)
     print(f"[kernel D] tet4_element_force T={tets.shape[0]} N={u.shape[0]}: f64 max|err| "
           f"{err:.3e} (scale {scale:.3e}, bar 1e-12 rel); f32 err vs f64 {e_k:.3e} (plain f32 "
           f"{e_p:.3e}, bar 2x); f64 {ms:.4f} ms vs plain {plain_ms:.4f} ms, f32 {ms32:.4f} ms "
-          f"vs plain {plain32:.4f} ms (median of 7)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+          f"vs plain {plain32:.4f} ms (median of 7); f64 bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']}), no one-call PyTorch equivalent")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
             "f32": {"max_abs_err": e_k, "plain_max_abs_err": e_p, "ms": ms32, "plain_ms": plain32},
             "T": tets.shape[0]}, fe
 
@@ -676,11 +724,18 @@ def check_csr_sum(label, vals64, plan):
     ms32, plain32 = timed_pair(lambda: cs.csr_segment_sum(v32, plan),
                                lambda: cs.csr_segment_sum_plain(v32, plan))
     R, C = vals64.shape
+    ids = torch.empty_like(plan.seg)  # each row's segment id, in row order
+    ids[plan.order.long()] = plan.seg
+    acc = torch.zeros_like(out)
+    library_ms = median_ms(lambda: acc.index_add_(0, ids, vals64))
+    bd = bound(nbytes(vals64, plan.order, plan.starts, out), vals64.numel(), torch.float64)
     print(f"[kernel E] csr_segment_sum {label}: R={R} C={C} N={plan.num_segments}: f64 max|err| "
           f"{err:.3e} (scale {scale:.3e}, bar 1e-12 rel), bitwise deterministic; f32 err vs f64 "
           f"{e_k:.3e} (plain f32 {e_p:.3e}, bar 2x); f64 {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
-          f"f32 {ms32:.4f} ms vs plain {plain32:.4f} ms (median of 7)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "R": R, "C": C,
+          f"index_add_ {library_ms:.4f} ms, f32 {ms32:.4f} ms vs plain {plain32:.4f} ms (median "
+          f"of 7); f64 bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bd,
+            "R": R, "C": C,
             "f32": {"max_abs_err": e_k, "plain_max_abs_err": e_p, "ms": ms32, "plain_ms": plain32}}
 
 
@@ -881,13 +936,16 @@ def run_gather_path(dev, res, state):
         {"name": "tet4_element_force", "route": "cuda", "source": "tpufem_torch/csrc/tet4_force.cu",
          "replaces": "tpufem/fem/assembly.py:60", "launches": launches["tet4_element_force"],
          "max_abs_err": kd["max_abs_err"], "ms": kd["ms"], "plain_ms": kd["plain_ms"],
+         "bound_ms": kd["bound_ms"], "bound_by": kd["bound_by"], "library_ms": None,
          "f32": kd["f32"], "T": kd["T"]},
         {"name": "csr_segment_sum", "route": "cuda",
          "source": "tpufem_torch/csrc/csr_segment_sum.cu",
          "replaces": "tpufem/fem/assembly.py:77", "launches": launches["csr_segment_sum"],
          "stencil_launches": state["stencil_csr_launches"],
          "max_abs_err": ke["incidence C=3"]["max_abs_err"], "ms": ke["incidence C=3"]["ms"],
-         "plain_ms": ke["incidence C=3"]["plain_ms"], "shapes": ke},
+         "plain_ms": ke["incidence C=3"]["plain_ms"], "bound_ms": ke["incidence C=3"]["bound_ms"],
+         "bound_by": ke["incidence C=3"]["bound_by"],
+         "library_ms": ke["incidence C=3"]["library_ms"], "shapes": ke},
     ]
 
 

@@ -266,7 +266,8 @@ def test_pcg_matches_tpufem(wing):
 def test_solve_wing_case_f64_matches_tpufem():
     m = structured_wing_mesh(1.2, 0.35, 0.0, 0.10, COARSE)
     sol = solve_wing_case(m, build_boundary_sets(m),
-                          WingSolveConfig(pressure=100.0, dtype=F64, tol=1e-10, maxiter=50000))
+                          WingSolveConfig(pressure=100.0, dtype=F64, tol=1e-10, maxiter=50000),
+                          device="cpu")
     jm = jstructured_wing_mesh(1.2, 0.35, 0.0, 0.10, JCOARSE)
     jsol = jsolve_wing_case(jm, jbuild_boundary_sets(jm),
                             JWingSolveConfig(pressure=100.0, dtype=jnp.float64, tol=1e-10,
@@ -294,7 +295,7 @@ def test_f32_refined_solve_meets_direct_solve_bar():
     bar: u < 1e-6, vm < 1e-5 against an independent direct solve)."""
     m = structured_wing_mesh(1.2, 0.35, 15.0, 0.10, COARSE)
     cfg = WingSolveConfig(pressure=5000.0, tol=1e-6, maxiter=10000, refine_steps=2)
-    sol = solve_wing_case(m, build_boundary_sets(m), cfg)
+    sol = solve_wing_case(m, build_boundary_sets(m), cfg, device="cpu")
     assert sol.converged and sol.u.dtype == np.float32
     jm = jstructured_wing_mesh(1.2, 0.35, 15.0, 0.10, JCOARSE)
     u_ref, _, vm_ref = direct_solve(jm, jbuild_boundary_sets(jm), pressure=5000.0)
@@ -319,7 +320,7 @@ def test_two_level_f32_refined_matches_direct(blunt_te):
     m, bs, jm = blunt_te
     cfg = WingSolveConfig(pressure=5000.0, tol=1e-6, maxiter=8000, two_level=True,
                           refine_steps=2)
-    sol = solve_wing_case(m, bs, cfg)
+    sol = solve_wing_case(m, bs, cfg, device="cpu")
     assert sol.converged
     u_ref, _, vm_ref = direct_solve(jm, jbuild_boundary_sets(jm), pressure=5000.0)
     assert np.linalg.norm(sol.u - u_ref) / np.linalg.norm(u_ref) < 1e-7
@@ -329,8 +330,8 @@ def test_two_level_f32_refined_matches_direct(blunt_te):
 def test_two_level_cuts_iterations(blunt_te):
     m, bs, _ = blunt_te
     base = dict(pressure=5000.0, tol=1e-6, maxiter=12000)
-    two = solve_wing_case(m, bs, WingSolveConfig(**base, two_level=True))
-    one = solve_wing_case(m, bs, WingSolveConfig(**base, two_level=False))
+    two = solve_wing_case(m, bs, WingSolveConfig(**base, two_level=True), device="cpu")
+    one = solve_wing_case(m, bs, WingSolveConfig(**base, two_level=False), device="cpu")
     assert two.converged
     assert two.iters < one.iters * 0.7, (two.iters, one.iters)
 
@@ -344,7 +345,7 @@ def test_hard_case_f32_rung_fails_finite_where_tpufem_blows_up():
     res = (32, 16, 3)
     m = structured_wing_mesh(2.0, 0.2, 30.0, 0.05, WingMeshResolution(*res))
     cfg = dict(pressure=5e3, tol=1e-6, maxiter=300, two_level=True)
-    sol = solve_wing_case(m, build_boundary_sets(m), WingSolveConfig(**cfg))
+    sol = solve_wing_case(m, build_boundary_sets(m), WingSolveConfig(**cfg), device="cpu")
     jm = jstructured_wing_mesh(2.0, 0.2, 30.0, 0.05, JWingMeshResolution(*res))
     jsol = jsolve_wing_case(jm, jbuild_boundary_sets(jm),
                             JWingSolveConfig(**cfg, dtype=jnp.float32))

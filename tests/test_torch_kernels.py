@@ -16,9 +16,10 @@ from tpufem_torch.fem.driver import WingSolveConfig, solve_wing_case
 from tpufem_torch.fem.elements import tet4_setup
 from tpufem_torch.fem.material import Material, lame_params
 from tpufem_torch.fem.stencil_mg import WingStencilT
-from tpufem_torch.mesher import COARSE, WingMeshResolution, structured_wing_mesh
+from tpufem_torch.mesher import COARSE, MEDIUM, WingMeshResolution, structured_wing_mesh
 from tpufem_torch.ops import csr_segment_sum as tcs
 from tpufem_torch.ops import gather_scatter as tgs
+from tpufem_torch.profile_solve import seeded_batch
 from tpufem_torch.sets import build_boundary_sets
 
 pytestmark = pytest.mark.gpu
@@ -100,36 +101,82 @@ def test_segment_sum_kernel_rejects_bad_input(cuda):
         tgs.sorted_segment_sum(msgs, torch.zeros(4, dtype=torch.int32, device=cuda), 3)
 
 
-@pytest.mark.parametrize("te", [0.006, 0.0])
-def test_strain_apply_kernel_matches_plain(cuda, te):
-    res = WingMeshResolution(12, 10, 3, te_floor_frac=te, spacing="le")
-    X = tst.nodes_grid(res, torch.as_tensor(P4, device=cuda), torch.float64)
+STRAIN_GRIDS = {
+    "12x10x3-le-weld": WingMeshResolution(12, 10, 3, te_floor_frac=0.006, spacing="le"),
+    "medium-sharp-te": MEDIUM,
+    # 13 node rows and 38 node columns leave ragged tiles along chord and
+    # span, and odd span rows take the kernel's scalar copies
+    "13x37x5-ragged": WingMeshResolution(13, 37, 5, te_floor_frac=0.0, spacing="le"),
+}
+
+
+def _strain_inputs(res, B, dev):
+    X = tst.nodes_grid(res, torch.as_tensor(seeded_batch(8)[:B], device=dev), torch.float64)
     geo = tst.cell_geometry(res, X)
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    u = torch.randn(X.shape, generator=gen, dtype=torch.float64, device=cuda)
-    free = torch.ones((1, 1, 1, 1, res.n_span + 1), dtype=torch.float64, device=cuda)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    u = torch.randn(X.shape, generator=gen, dtype=torch.float64, device=dev)
+    free = torch.ones((1, 1, 1, 1, res.n_span + 1), dtype=torch.float64, device=dev)
     free[..., 0] = 0.0
-    before = tst.strain_apply.launches
-    y = tst.strain_apply(res, geo, u, free, LAM, MU)
+    return geo, u, free
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("grid", list(STRAIN_GRIDS))
+def test_strain_apply_kernel_matches_plain(cuda, grid, B, dtype):
+    res = STRAIN_GRIDS[grid]
+    geo, u, free = _strain_inputs(res, B, cuda)
     ref = tst.strain_apply_plain(res, geo, u, free, LAM, MU)
+    geo_d, u_d, free_d = tuple(t.to(dtype) for t in geo), u.to(dtype), free.to(dtype)
+    before = tst.strain_apply.launches
+    y = tst.strain_apply(res, geo_d, u_d, free_d, LAM, MU)
     assert tst.strain_apply.launches == before + 1
-    scale = ref.abs().max().item()
-    assert (y - ref).abs().max().item() <= 1e-12 * scale
-    assert torch.equal(y, tst.strain_apply(res, geo, u, free, LAM, MU))
-    # f32: the kernel's error against the f64 result is no worse than 2x the
-    # plain f32 version's
-    geo32 = tuple(t.float() for t in geo)
-    y32 = tst.strain_apply(res, geo32, u.float(), free.float(), LAM, MU)
-    p32 = tst.strain_apply_plain(res, geo32, u.float(), free.float(), LAM, MU)
-    e_k = (y32.double() - ref).abs().max().item()
-    e_p = (p32.double() - ref).abs().max().item()
-    assert e_k <= 2.0 * e_p, (e_k, e_p)
+    assert torch.equal(y, tst.strain_apply(res, geo_d, u_d, free_d, LAM, MU))  # no atomics
+    err = (y.double() - ref).abs().max().item()
+    if dtype == torch.float64:
+        assert err <= 1e-12 * ref.abs().max().item()
+    else:
+        # the kernel's error against the f64 result is no worse than 2x the
+        # plain f32 version's
+        p32 = tst.strain_apply_plain(res, geo_d, u_d, free_d, LAM, MU)
+        assert err <= 2.0 * (p32.double() - ref).abs().max().item()
 
 
-def test_solve_on_cuda_matches_cpu(cuda):
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_strain_apply_is_one_device_kernel(cuda, dtype):
+    """One apply on the card, weld spread/reduce, mask and Dirichlet identity
+    included, is exactly one device activity: kernel B."""
+    res = STRAIN_GRIDS["medium-sharp-te"]
+    geo, u, free = _strain_inputs(res, 8, cuda)
+    geo, u, free = tuple(t.to(dtype) for t in geo), u.to(dtype), free.to(dtype)
+    tst.strain_apply(res, geo, u, free, LAM, MU)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        tst.strain_apply(res, geo, u, free, LAM, MU)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "strain_apply" in names[0], names
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "device"])
+def test_strain_apply_kernel_rejects_bad_free(cuda, bad):
+    res = STRAIN_GRIDS["12x10x3-le-weld"]
+    geo, u, free = _strain_inputs(res, 1, cuda)
+    wrong = {"shape": free.reshape(1, 1, 1, res.n_span + 1, 1),
+             "dtype": free.float(), "device": free.cpu()}[bad]
+    with pytest.raises((ValueError, TypeError)):
+        tst.strain_apply(res, geo, u, wrong, LAM, MU)
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_solve_on_cuda_matches_cpu(cuda, B):
+    """The whole solve on the card at B=1 and B=8 agrees with the CPU's.
+    Kernel B raises on an operand that is not contiguous, so this also holds
+    that every vector the V-cycle and the CG hand the operator is contiguous."""
     res = WingMeshResolution(12, 10, 3, te_floor_frac=0.006, spacing="le")
-    out_c = WingStencilT(res, device=cuda).solve(P4, tol=1e-8, maxiter=2000)
-    out_h = WingStencilT(res).solve(P4, tol=1e-8, maxiter=2000)
+    p4 = seeded_batch(8)[:B]
+    out_c = WingStencilT(res, device=cuda).solve(p4, tol=1e-8, maxiter=2000)
+    out_h = WingStencilT(res, device="cpu").solve(p4, tol=1e-8, maxiter=2000)
     assert bool(out_c.converged.all()) and bool(out_h.converged.all())
     u_c, u_h = out_c.u.cpu(), out_h.u
     assert (u_c - u_h).abs().max().item() <= 1e-7 * u_h.abs().max().item()
@@ -198,7 +245,7 @@ def test_gather_solve_on_cuda_matches_cpu(cuda):
     d0, e0 = tas.tet4_element_force.launches, tcs.csr_segment_sum.launches
     sc = solve_wing_case(m, bs, cfg, device=cuda)
     assert tas.tet4_element_force.launches > d0 and tcs.csr_segment_sum.launches > e0
-    sh = solve_wing_case(m, bs, cfg)
+    sh = solve_wing_case(m, bs, cfg, device="cpu")
     assert sc.converged and sh.converged
     assert np.linalg.norm(sc.u - sh.u) <= 1e-7 * np.linalg.norm(sh.u)
     assert np.abs(sc.vm - sh.vm).max() <= 1e-7 * np.abs(sh.vm).max()

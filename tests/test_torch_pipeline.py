@@ -361,7 +361,7 @@ def test_inference_writes_glbs(roots, tmp_path):
     root = _copy_root(port, tmp_path / "i")
     ckpt = tmp_path / "model.pt"  # a seeded small model: 3 cases leave no validation split
     cfg = TrainConfig(model=SAGEConfig(hidden=16, num_layers=2))
-    trainer = Trainer(cfg)
+    trainer = Trainer(cfg, device="cpu")
     trainer.save_checkpoint(ckpt, trainer.init()[0], epoch=0, val_loss=0.0)
     assert inference_gnn.main(["--split", "all", "--checkpoint", str(ckpt),
                                "--data_root", str(root), "--device", "cpu"]) == 0

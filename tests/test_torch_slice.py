@@ -52,7 +52,7 @@ REPO = Path(__file__).resolve().parents[1]
 @pytest.fixture(scope="module")
 def solved():
     res = WingMeshResolution(12, 10, 3, te_floor_frac=0.006, spacing="le")
-    solver = WingStencilT(res)
+    solver = WingStencilT(res, device="cpu")
     out = solver.solve(P4, pressure=PRESSURE, tol=TOL, maxiter=2000)
     res_j = jmesher.WingMeshResolution(12, 10, 3, te_floor_frac=0.006, spacing="le")
     return solver, out, res_j, JWingStencilT(res_j, dtype=jnp.float32)
@@ -164,7 +164,7 @@ def test_port_imports_without_jax():
         "tpufem_torch.ops.csr_segment_sum", "tpufem_torch.msh2", "tpufem_torch.utils.profiling",
         "tpufem_torch.viz", "tpufem_torch.viz.glb", "tpufem_torch.viz.colormaps",
         "tpufem_torch.viz.results", "tpufem_torch.viz.arrows", "tpufem_torch.pipeline.verify",
-        "tpufem_torch.profile_gather",
+        "tpufem_torch.profile_gather", "tpufem_torch.profile_operator", "tpufem_torch.device",
     ]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -175,6 +175,28 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("entry", ["WingStencilT", "solve_wing_case", "Trainer",
+                                   "Trainer.load_checkpoint"])
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
+    """The port's entry points run on the card unless the caller asks for the
+    CPU: with no CUDA device, the default raises instead of falling back."""
+    from tpufem_torch.mesher import structured_wing_mesh
+    from tpufem_torch.models.train import TrainConfig, Trainer
+    from tpufem_torch.sets import build_boundary_sets
+
+    res = WingMeshResolution(4, 4, 2, te_floor_frac=0.006, spacing="le")
+    mesh = structured_wing_mesh(*P4[0], res)
+    calls = {
+        "WingStencilT": lambda: WingStencilT(res),
+        "solve_wing_case": lambda: tdrv.solve_wing_case(mesh, build_boundary_sets(mesh)),
+        "Trainer": lambda: Trainer(TrainConfig()),
+        "Trainer.load_checkpoint": lambda: Trainer.load_checkpoint(tmp_path / "none.pt"),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
 
 
 def test_profile_batch_is_chip_smoke_batch():

@@ -73,6 +73,26 @@ def test_strain_apply_cpu_takes_plain_version(setup):
     assert torch.equal(y, tst.strain_apply_plain(rb, geo, u, f, LAM, MU))
 
 
+@pytest.mark.parametrize("bad", ["none", "free_shape", "free_dtype", "u_strided", "u_grid"])
+def test_kernel_b_input_check(setup, bad):
+    """What kernel B takes is checked before any launch: the root mask
+    (1,1,1,1,NJ) of u's dtype, contiguous operands on res's grid. Holds on
+    CPU tensors too, so it is tested here; the CUDA wrapper raises on the
+    same inputs (tests/test_torch_kernels.py)."""
+    _, rb, _, Xb, ug, free = setup
+    geo = tst.cell_geometry(rb, Xb)
+    u, f = torch.as_tensor(ug), torch.as_tensor(free)
+    args = {"none": (u, f), "free_shape": (u, f.reshape(1, 1, 1, -1, 1)),
+            "free_dtype": (u, f.float()), "u_strided": (u.transpose(2, 4).contiguous()
+                                                        .transpose(2, 4), f),
+            "u_grid": (u[:, :, :-1].contiguous(), f)}[bad]
+    if bad == "none":
+        tst.check_strain_apply_inputs(rb, geo, *args)
+    else:
+        with pytest.raises((ValueError, TypeError)):
+            tst.check_strain_apply_inputs(rb, geo, *args)
+
+
 def test_assemble_line_stencil_matches(setup):
     ra, rb, Xa, Xb, _, _ = setup
     offs = ((0, 0, -1), (0, 0, 0), (0, 0, 1))

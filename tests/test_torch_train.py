@@ -151,7 +151,7 @@ def test_optimizer_matches_optax():
     jtr = JTrainer(JTrainConfig(**cfg_kw, model=FlaxConfig(**SMALL)))
     params, state = jtr.init(jgraphs[0])
     ema_j = params
-    tr = Trainer(TrainConfig(**cfg_kw, model=SAGEConfig(**SMALL)))
+    tr = Trainer(TrainConfig(**cfg_kw, model=SAGEConfig(**SMALL)), device="cpu")
     model, opt = tr.init()
     model.load_state_dict(flax_to_state_dict(to_np(params)))
     ema = GraphSAGE(SAGEConfig(**SMALL))
@@ -197,7 +197,7 @@ def test_trainer_overfits_tiny_dataset(tmp_path):
     graphs = _overfit_graphs()
     cfg = TrainConfig(lr=3e-3, batch_size=2, max_epochs=60, early_stop_patience=60,
                       model=SAGEConfig(**SMALL))
-    summary = Trainer(cfg).fit(graphs, graphs, tmp_path, verbose=False)
+    summary = Trainer(cfg, device="cpu").fit(graphs, graphs, tmp_path, verbose=False)
     losses = [r["train_loss"] for r in summary["log"]]
     assert losses[-1] < losses[0] / 10
     assert summary["stopped_reason"] == "max_epochs"
@@ -210,13 +210,13 @@ def test_trainer_ema_checkpoints_averaged_params(tmp_path):
     graphs = _overfit_graphs()
     cfg = TrainConfig(lr=3e-3, batch_size=2, max_epochs=60, early_stop_patience=60,
                       ema_decay=0.9, model=SAGEConfig(**SMALL))
-    tr = Trainer(cfg)
+    tr = Trainer(cfg, device="cpu")
     summary = tr.fit(graphs, graphs, tmp_path, verbose=False)
     losses = [r["train_loss"] for r in summary["log"]]
     assert losses[-1] < losses[0] / 10
     # the checkpointed (EMA) params evaluate to the logged best val loss:
     # model selection really used the averaged iterate
-    model, _ = Trainer.load_checkpoint(tmp_path / "best_model.pt")
+    model, _ = Trainer.load_checkpoint(tmp_path / "best_model.pt", device="cpu")
     ev = tr.evaluate(model, graphs)
     assert ev["loss"] <= summary["best_val_loss"] * 1.5 + 1e-9
     np.testing.assert_allclose(ev["loss"], summary["best_val_loss"], rtol=1e-5)
@@ -224,10 +224,10 @@ def test_trainer_ema_checkpoints_averaged_params(tmp_path):
 
 def test_checkpoint_roundtrip(tmp_path):
     graph = build_graph(tiny_surface(), tiny_faces(), PARAMS)
-    tr = Trainer(TrainConfig(model=SAGEConfig(**SMALL)))
+    tr = Trainer(TrainConfig(model=SAGEConfig(**SMALL)), device="cpu")
     model, _ = tr.init()
     tr.save_checkpoint(tmp_path / "ck.pt", model, epoch=3, val_loss=0.5)
-    model2, cfg2 = Trainer.load_checkpoint(tmp_path / "ck.pt")
+    model2, cfg2 = Trainer.load_checkpoint(tmp_path / "ck.pt", device="cpu")
     assert cfg2.hidden == 32 and cfg2 == model.config
     np.testing.assert_allclose(tr.predict(model, graph), tr.predict(model2, graph), atol=1e-7)
 

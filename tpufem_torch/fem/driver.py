@@ -17,6 +17,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from tpufem_torch.device import resolve_device
 from tpufem_torch.fem.assembly import build_incidence, stiffness_diagonal, stiffness_operator
 from tpufem_torch.fem.bc import dirichlet_mask
 from tpufem_torch.fem.elements import tet4_setup
@@ -188,12 +189,12 @@ def mesh_plans(mesh: Mesh, sets: BoundarySets, device, two_level: bool = True) -
 
 
 def solve_wing_case(
-    mesh: Mesh, sets: BoundarySets, config: WingSolveConfig | None = None, device="cpu"
+    mesh: Mesh, sets: BoundarySets, config: WingSolveConfig | None = None, device="cuda"
 ) -> FemSolution:
     """Host-facing single-case solve: plans on the host, compute on `device`
-    in config.dtype."""
+    (the card unless the caller asks for the CPU) in config.dtype."""
     config = config or WingSolveConfig()
-    device = torch.device(device)
+    device = resolve_device(device)
     tets = torch.as_tensor(mesh.tets.astype(np.int32), device=device)
     upper = torch.as_tensor(mesh.surf_faces[sets.surf_upper_faces].astype(np.int32), device=device)
     free64 = dirichlet_mask(mesh.num_nodes, sets.nroot_nodes, dtype=torch.float64, device=device)

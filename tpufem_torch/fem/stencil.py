@@ -10,8 +10,9 @@ is wrapped as R K_full S with S = weld_spread, R = S^T = weld_reduce.
 Dirichlet (root, j = 0) by masking with identity on fixed dofs.
 
 ``strain_apply`` is the operator of the CG and of every V-cycle smoother; on a
-CUDA tensor it launches the hand-written kernel ``csrc/strain_apply.cu``
-(kernel B), on a CPU tensor it runs ``strain_apply_plain``.
+CUDA tensor it is one launch of the hand-written kernel ``csrc/strain_apply.cu``
+(kernel B, welds and Dirichlet wrap included), on a CPU tensor it runs
+``strain_apply_plain``.
 """
 
 from __future__ import annotations
@@ -216,37 +217,54 @@ def strain_apply_plain(res: WingMeshResolution, geo, u, free, lam, mu):
     return y + u * (1.0 - free)
 
 
-def strain_apply(res: WingMeshResolution, geo, u, free, lam: float, mu: float):
-    """y = A_w u, the welded + Dirichlet-wrapped strain-first operator.
-
-    A CPU tensor takes strain_apply_plain. A CUDA tensor launches kernel B for
-    the element forces; weld spread/reduce and the free mask stay in PyTorch.
-    lam and mu are Python floats.
-    """
-    if not u.is_cuda:
-        return strain_apply_plain(res, geo, u, free, lam, mu)
+def check_strain_apply_inputs(res: WingMeshResolution, geo, u, free) -> None:
+    """Raise unless kernel B takes these inputs as they are: u (3,B,NI,NK,NJ)
+    on res's grid, g (6,4,3,B,nc,nt,ns), vol (6,B,nc,nt,ns) and the root mask
+    free (1,1,1,1,NJ), all contiguous, of one float dtype (f32 or f64) on one
+    device, with every index below 2^31 (the kernel indexes in 32 bits)."""
     g, vol = geo
     if u.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kernel B takes f32 or f64, got {u.dtype}")
-    B, NI, NK, NJ = u.shape[1:]
-    if (u.shape[0] != 3 or g.shape != (6, 4, 3, B, NI - 1, NK - 1, NJ - 1)
-            or vol.shape != (6, B, NI - 1, NK - 1, NJ - 1)):
-        raise ValueError(f"bad shapes u {tuple(u.shape)} g {tuple(g.shape)} "
-                         f"vol {tuple(vol.shape)}")
-    if g.dtype != u.dtype or vol.dtype != u.dtype or g.device != u.device or vol.device != u.device:
-        raise TypeError("kernel B needs g, vol and u of one dtype on one device")
-    us = weld_spread(res, u * free).contiguous()
-    g = g.contiguous()
-    vol = vol.contiguous()
-    y = torch.empty_like(us)
+    if any(t.dtype != u.dtype for t in (g, vol, free)):
+        raise TypeError(f"kernel B needs one dtype: u {u.dtype}, g {g.dtype}, vol {vol.dtype}, "
+                        f"free {free.dtype}")
+    if any(t.device != u.device for t in (g, vol, free)):
+        raise ValueError("kernel B: u, g, vol and free lie on different devices")
+    NI, NK, NJ = res.n_chord + 1, res.n_thick + 1, res.n_span + 1
+    B = u.shape[1] if u.dim() == 5 else -1
+    if (u.shape != (3, B, NI, NK, NJ) or g.shape != (6, 4, 3, B, NI - 1, NK - 1, NJ - 1)
+            or vol.shape != (6, B, NI - 1, NK - 1, NJ - 1) or free.shape != (1, 1, 1, 1, NJ)):
+        raise ValueError(f"kernel B on the {NI}x{NK}x{NJ} grid: bad shapes u {tuple(u.shape)} "
+                         f"g {tuple(g.shape)} vol {tuple(vol.shape)} free {tuple(free.shape)}")
+    if not all(t.is_contiguous() for t in (u, g, vol, free)):
+        raise ValueError("kernel B takes contiguous u, g, vol and free")
+    if max(g.numel(), u.numel()) >= 2**31:
+        raise ValueError("kernel B indexes in 32 bits: the arrays are too large")
+
+
+def strain_apply(res: WingMeshResolution, geo, u, free, lam: float, mu: float):
+    """y = A_w u = R(K(S(u * free))) * free + u * (1 - free), the welded +
+    Dirichlet-wrapped strain-first operator (S = weld_spread, R = weld_reduce).
+
+    A CPU tensor takes strain_apply_plain. A CUDA tensor launches kernel B,
+    which computes the whole function, mask, welds and Dirichlet identity
+    included, in one launch; inputs it does not take raise
+    (check_strain_apply_inputs). lam and mu are Python floats.
+    """
+    if not u.is_cuda:
+        return strain_apply_plain(res, geo, u, free, lam, mu)
+    check_strain_apply_inputs(res, geo, u, free)
+    g, vol = geo
+    _, B, NI, NK, NJ = u.shape
+    y = torch.empty_like(u)
     lib = load_kernels()
     fn = lib.tpufem_strain_apply_f64 if u.dtype == torch.float64 else lib.tpufem_strain_apply_f32
-    status = fn(g.data_ptr(), vol.data_ptr(), us.data_ptr(), y.data_ptr(), B, NI, NK, NJ,
-                float(lam), float(mu), torch.cuda.current_stream(u.device).cuda_stream)
+    status = fn(g.data_ptr(), vol.data_ptr(), u.data_ptr(), free.data_ptr(), y.data_ptr(),
+                B, NI, NK, NJ, int(res.te_floor_frac == 0.0), float(lam), float(mu),
+                torch.cuda.current_stream(u.device).cuda_stream)
     check(status, "strain_apply")
     strain_apply.launches += 1
-    y = weld_reduce(res, y) * free
-    return y + u * (1.0 - free)
+    return y
 
 
 strain_apply.launches = 0

@@ -18,6 +18,7 @@ import time
 import numpy as np
 import torch
 
+from tpufem_torch.device import resolve_device
 from tpufem_torch.fem.batched_t import BatchTSolveResult, WingBatchT, _cross
 from tpufem_torch.fem.material import Material, lame_params
 from tpufem_torch.fem.multigrid import _level_host, coarsest_dense_inverse_host
@@ -124,7 +125,13 @@ def _restrict_axis(xf, axis, wL, wR):
 
 class StencilMG:
     """Batched grid-layout V-cycle preconditioner, on `device` in `dtype`,
-    over the full hierarchy_resolutions(res)."""
+    over the full hierarchy_resolutions(res).
+
+    Kernel B (strain_apply on CUDA) takes only contiguous operands and raises
+    on any other. Every vector the V-cycle and the CG hand to the operator is
+    therefore a fresh elementwise result of contiguous (3,B,NI,NK,NJ) arrays
+    or _line_apply's contiguous output; the gpu test
+    test_solve_on_cuda_matches_cpu runs both on the card at B=1 and 8."""
 
     smooth_degree = 2  # Chebyshev degree
     smooth_alpha = 0.25  # lmin / lmax of the Chebyshev interval
@@ -140,16 +147,20 @@ class StencilMG:
             _chord_weights(self.resolutions[i], dtype, self.device)
             for i in range(self.n_levels - 1)
         ]
-        # duplicate-zero masks (active form keeps weld duplicates at zero)
-        self.dup_masks = []
+        # free_masks: the root (Dirichlet) mask; active_masks: that times the
+        # duplicate-zero mask (the active form keeps weld duplicates at zero).
+        # Both are 0/1, so one multiply by their product gives the bits of
+        # multiplying by each in turn.
         self.free_masks = []
+        self.active_masks = []
         for r in self.resolutions:
             NK = r.n_thick + 1
             m = np.ones((1, 1, r.n_chord + 1, NK, r.n_span + 1), np.float32)
             m[:, :, 0, 1:, :] = 0.0
             if r.te_floor_frac == 0.0:
                 m[:, :, -1, 1:, :] = 0.0
-            self.dup_masks.append(torch.as_tensor(m, dtype=dtype, device=self.device))
+            m[..., 0] = 0.0
+            self.active_masks.append(torch.as_tensor(m, dtype=dtype, device=self.device))
             f = np.ones((1, 1, 1, 1, r.n_span + 1), np.float32)
             f[..., 0] = 0.0
             self.free_masks.append(torch.as_tensor(f, dtype=dtype, device=self.device))
@@ -200,14 +211,17 @@ class StencilMG:
         return spd_block_inverse(Bm.reshape(-1, D, D)).reshape(NI, NJ, nb, D, D)
 
     def _line_apply(self, li, Binv, rg):
-        """z = line-block solve; rg (3,B,NI,NK,NJ) active form."""
+        """z = line-block solve; rg (3,B,NI,NK,NJ) active form. z comes back
+        contiguous: kernel B takes only contiguous operands, and the smoother
+        and the CG hand it what this returns."""
         r = self.resolutions[li]
         NI, NJ, NK = r.n_chord + 1, r.n_span + 1, r.n_thick + 1
         nb = rg.shape[1]
         rs = rg.permute(2, 4, 1, 3, 0).reshape(NI, NJ, nb, 3 * NK, 1)  # (NI,NJ,B,D,1)
         zs = torch.matmul(Binv, rs)
         z = zs.reshape(NI, NJ, nb, NK, 3).permute(4, 2, 0, 3, 1)
-        return z * self.dup_masks[li] * self.free_masks[li]
+        out = torch.empty(z.shape, dtype=z.dtype, device=z.device)
+        return torch.mul(z, self.active_masks[li], out=out)
 
     # ---- transfers (fine li -> coarse li+1 and back)
     def _prolong(self, li, xc):
@@ -218,11 +232,11 @@ class StencilMG:
         if rc.n_thick != rf.n_thick:
             x = _interp_axis(x, 3, rf.n_thick + 1, 0.5, 0.5)  # thickness
         x = _interp_axis(x, 4, rf.n_span + 1, 0.5, 0.5)  # span
-        return x * self.dup_masks[li] * self.free_masks[li]
+        return x * self.active_masks[li]
 
     def _restrict(self, li, rf_vec):
         rf, rc = self.resolutions[li], self.resolutions[li + 1]
-        x = rf_vec * self.dup_masks[li] * self.free_masks[li]
+        x = rf_vec * self.active_masks[li]
         x = _restrict_axis(x, 4, 0.5, 0.5)
         if rc.n_thick != rf.n_thick:
             x = _restrict_axis(x, 3, 0.5, 0.5)
@@ -258,7 +272,7 @@ class StencilMG:
         v = torch.sin(
             torch.arange(NI * NK * NJ * 3, dtype=self.dtype, device=self.device) * 0.7311
         ).reshape(3, 1, NI, NK, NJ)
-        v = v.expand(3, nb, NI, NK, NJ) * self.dup_masks[li] * self.free_masks[li]
+        v = v.expand(3, nb, NI, NK, NJ) * self.active_masks[li]
         lam = torch.ones((nb,), dtype=self.dtype, device=self.device)
         for _ in range(self.power_iters):
             w = M(A(v))
@@ -386,9 +400,9 @@ class WingStencilT:
     # correction rounds: tpufem ran up to 6 on the device plus 8 host-judged
     max_rounds = 14
 
-    def __init__(self, res: WingMeshResolution, device="cpu"):
+    def __init__(self, res: WingMeshResolution, device="cuda"):
         self.res = res
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.bt = WingBatchT(res, device=self.device)
         self.num_nodes = self.bt.num_nodes
         self.smg = StencilMG(res, dtype=MG_DTYPE, device=self.device)

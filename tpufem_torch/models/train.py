@@ -36,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpufem_torch.device import resolve_device
 from tpufem_torch.models.graph import GraphData
 from tpufem_torch.models.metrics import compute_metrics, masked_mse
 from tpufem_torch.models.sage import GraphSAGE, SAGEConfig
@@ -128,11 +129,12 @@ def ema_update_(ema: torch.nn.Module, model: torch.nn.Module, decay: float) -> N
 
 
 class Trainer:
-    """Fits a GraphSAGE on `device` (cuda runs the CUDA kernels A and C)."""
+    """Fits a GraphSAGE on `device`, the card unless the caller asks for the
+    CPU (cuda runs the CUDA kernels A and C)."""
 
-    def __init__(self, cfg: TrainConfig, device="cpu"):
+    def __init__(self, cfg: TrainConfig, device="cuda"):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # plateau scheduling multiplies cfg.lr by this host-side scale
         self._lr_scale = 1.0
 
@@ -298,9 +300,11 @@ class Trainer:
         path.with_suffix(".json").write_text(json.dumps(meta, indent=2))
 
     @staticmethod
-    def load_checkpoint(path: Path | str, device="cpu") -> tuple[GraphSAGE, SAGEConfig]:
-        """Rebuild the model from the sidecar config and load its weights
-        (the reference's self-describing checkpoint, inference_gnn.py:44-59)."""
+    def load_checkpoint(path: Path | str, device="cuda") -> tuple[GraphSAGE, SAGEConfig]:
+        """Rebuild the model from the sidecar config and load its weights onto
+        `device`, the card unless the caller asks for the CPU (the reference's
+        self-describing checkpoint, inference_gnn.py:44-59)."""
+        device = resolve_device(device)
         path = Path(path)
         meta = json.loads(path.with_suffix(".json").read_text())
         cfg = SAGEConfig.from_json_dict(meta["model_config"])

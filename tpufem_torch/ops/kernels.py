@@ -39,11 +39,11 @@ _SIGNATURES = {
     # (g, seg, out, E, C, num_segments, stream)
     "tpufem_segment_gather_f32": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                                   ctypes.c_int, _P],
-    # (g, vol, us, y, B, NI, NK, NJ, lam, mu, stream)
-    "tpufem_strain_apply_f32": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_int, ctypes.c_double, ctypes.c_double, _P],
-    "tpufem_strain_apply_f64": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_int, ctypes.c_double, ctypes.c_double, _P],
+    # (g, vol, u, free, y, B, NI, NK, NJ, weld_te, lam, mu, stream)
+    "tpufem_strain_apply_f32": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_double, _P],
+    "tpufem_strain_apply_f64": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_double, _P],
     # (grads, vols, tets, u, fe, T, lam, mu, stream)
     "tpufem_tet4_force_f32": [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_double,
                               ctypes.c_double, _P],

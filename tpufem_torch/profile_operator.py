@@ -1,0 +1,115 @@
+"""Kernel B (``fem.stencil.strain_apply``) on one CUDA card: device time per
+launch and device activities per operator apply, against the byte bound.
+
+At every V-cycle level of DOF100K that applies the operator (64x80x6,
+32x40x3, 16x20x3, 8x10x3) and at MEDIUM (32x24x4, sharp TE), in f64 and f32,
+on chip_smoke.py's seeded batch of 8: each measurement is a short
+torch.profiler window of 20 applies after a warm-up. It reads the kernel's own device
+time (the rows whose name holds "strain_apply") and counts every device
+activity in the window, so an operator that wraps its kernel in other launches
+shows them. The bound is the larger of the bytes each apply must move (g, vol,
+u and free read once, y written once) over the card's memory rate and its
+arithmetic (FLOPS_PER_TET per Kuhn tet) over the card's rate outside the
+tensor cores (the rates are in tpufem_torch/device.py).
+
+Usage: python -m tpufem_torch.profile_operator [--out PATH]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from tpufem_torch.device import HBM_BYTES_PER_S, PEAK_FLOPS
+from tpufem_torch.fem import stencil as st
+from tpufem_torch.fem.material import Material, lame_params
+from tpufem_torch.fem.stencil_mg import hierarchy_resolutions
+from tpufem_torch.mesher import DOF100K, MEDIUM
+from tpufem_torch.profile_solve import seeded_batch
+
+BATCH = 8  # the seeded batch chip_smoke.py and profile_solve solve
+REPS = 20  # applies per profiler window
+# per tet: H = sum_a g_a (x) u_a (36 FMA), sigma * vol (~36), 4 corner forces
+# sigma . g_a (60)
+FLOPS_PER_TET = 170
+
+
+def operator_inputs(res, p4, dtype, device, seed=0):
+    """(geo, u, free) as the solver hands them to strain_apply: cell geometry
+    of the batch p4 (B,4) built in f64 and cast, a seeded random u, the root
+    mask."""
+    X = st.nodes_grid(res, torch.as_tensor(p4, device=device), torch.float64)
+    geo = tuple(t.to(dtype) for t in st.cell_geometry(res, X))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = torch.randn(X.shape, generator=gen, dtype=torch.float64, device=device).to(dtype)
+    free = torch.ones((1, 1, 1, 1, res.n_span + 1), dtype=dtype, device=device)
+    free[..., 0] = 0.0
+    return geo, u, free
+
+
+def apply_bound(geo, u, free):
+    """(bound in us, "bytes" or "operations") of one apply on these inputs."""
+    g, vol = geo
+    # inputs g, vol, u, free read once; y (u's shape) written once
+    nbytes = sum(t.numel() * t.element_size() for t in (g, vol, u, free, u))
+    flops = FLOPS_PER_TET * vol.numel()  # vol holds one entry per (tet, case, cell)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[u.dtype]
+    return max(t_bytes, t_ops) * 1e6, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def profile_apply(res, geo, u, free, lam, mu):
+    """Device us per kernel-B launch and device activities per apply, from
+    one torch.profiler window of REPS applies (after one warm-up)."""
+    st.strain_apply(res, geo, u, free, lam, mu)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            st.strain_apply(res, geo, u, free, lam, mu)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = [e for e in dev if "strain_apply" in e.name]
+    if not kern:
+        raise RuntimeError("the profiler saw no strain_apply kernel: no device trace")
+    bound, by = apply_bound(geo, u, free)
+    device_us = sum(e.time_range.elapsed_us() for e in kern) / len(kern)
+    return {"device_us": device_us, "launches": len(kern) / REPS,
+            "activities_per_apply": len(dev) / REPS,
+            "wrapper_device_us": sum(e.time_range.elapsed_us() for e in dev) / REPS,
+            "bound_us": bound, "bound_by": by, "share": bound / device_us}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None, help="file for the results as JSON lines")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_operator: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    lam, mu = lame_params(Material())
+    p4 = seeded_batch(BATCH)
+    cases = [(f"DOF100K level {i}", r) for i, r in enumerate(hierarchy_resolutions(DOF100K)[:-1])]
+    cases.append(("MEDIUM", MEDIUM))
+    rows = []
+    for label, res in cases:
+        for dtype in (torch.float64, torch.float32):
+            geo, u, free = operator_inputs(res, p4, dtype, dev)
+            r = profile_apply(res, geo, u, free, lam, mu)
+            r.update(case=label, grid=res.key, batch=BATCH, dtype=str(dtype))
+            rows.append(r)
+            print(f"[{label} {res.key} B={BATCH} {dtype}] kernel B {r['device_us']:.2f} us "
+                  f"per launch, bound {r['bound_us']:.2f} us ({r['bound_by']}): "
+                  f"{r['share']:.1%} of the bound; {r['activities_per_apply']:.0f} device "
+                  f"activities per apply, {r['wrapper_device_us']:.2f} us of device time")
+    if args.out:
+        with open(args.out, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in rows)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -51,8 +51,9 @@ def main(argv=None) -> int:
         out = solver.solve(p4, tol=1e-6, maxiter=2000)
         wall = time.perf_counter() - t0
         tm = solver.last_timing
-        print(f"[unprofiled {run}] iters {out.iters} wall {wall:.3f} s: setup "
-              f"{tm['setup_s']:.3f} s, solve {tm['solve_s']:.3f} s, recover "
+        print(f"[unprofiled {run}] iters {out.iters} wall {wall:.3f} s = {wall / args.batch:.4f} "
+              f"s/wing: setup {tm['setup_s']:.3f} s, solve {tm['solve_s']:.3f} s "
+              f"({tm['solve_s'] / max(out.iters, 1) * 1e3:.3f} ms per CG iteration), recover "
               f"{tm['recover_s']:.3f} s")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out = solver.solve(p4, tol=1e-6, maxiter=2000)
@@ -65,6 +66,13 @@ def main(argv=None) -> int:
     print(f"[profiled] device busy {busy_s:.3f} s in {len(dev_events)} device activities "
           f"({len(dev_events) / max(out.iters, 1):.0f} per CG iteration); "
           f"{busy_s / wall:.1%} of the last unprofiled wall")
+    kern_b = {}
+    for e in dev_events:
+        if "strain_apply" in e.name:
+            kern_b.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    for name, us in kern_b.items():
+        print(f"[profiled] kernel B {name[:60]}: {len(us)} launches, {sum(us) / 1e3:.3f} ms, "
+              f"{sum(us) / len(us):.2f} us per launch (all levels)")
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
     if args.out:
         with open(args.out, "w") as f:
