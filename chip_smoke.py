@@ -17,18 +17,25 @@ trained checkpoint exists). Along the way:
      the byte bound, and its device activities per apply (exactly 1);
   3. solves, and recomputes the TRUE f64 residual independently on the CPU
      (plain strain_apply, numpy loads); checks the physics;
-  4. runs the surrogate on all 8 surface graphs through kernel A
-     (sorted_segment_sum), checks it against the plain-aggregation forward,
-     and checks kernel A against its plain version on those graph shapes;
+  4. runs the surrogate on all 8 surface graphs under aggregate_impl
+     "segment" (the fused neighbour mean: the row-pointer kernel once and
+     kernel A entry (b) once per layer) and on the first under "pallas"
+     (messages materialised: kernel C gathers them, kernel A entry (a) sums
+     them), holds the two against each other and against the plain forward
+     on the CPU, and checks every entry of csrc/segment_sum.cu against its
+     plain version at one graph and at the 8-graph batch, with its event
+     time, device time, plain and library times and bound;
   5. the training path, through the port's CLIs in a temporary --data_root
      under build/: 16 DOF100K wings (geometry -> mesh -> batched FEM, all
      converged at TRUE rel <= 1e-6, every stage's GLBs written and parsed),
-     3 epochs of the full-width GraphSAGE (9 steps at batch 4, kernels A
-     forward and C backward), inference on the 3 test wings (with
-     wing_pred.glb / wing_error.glb); then the card's gradients of one merged
-     batch against the CPU's, the step's forward/backward/optimizer times,
-     and kernel C (segment_gather) against its plain version on the
-     merged-batch shape;
+     3 epochs of the full-width GraphSAGE (9 steps at batch 4, the fused
+     route: kernel A entry (b) forward, and backward over the transposed
+     plan), inference on the 3 test wings (with wing_pred.glb /
+     wing_error.glb); then the card's gradients of one merged batch against
+     the CPU's under both aggregate_impl values (the "pallas" route's
+     backward launches kernels C and A entry (b)), the step's
+     forward/backward/optimizer times, and every entry of segment_sum.cu
+     again at the merged batch's shape (kernel C's headline shape);
   6. the gather path: (a) kernels D (tet4_element_force) and E
      (csr_segment_sum) against their plain versions at the DOF100K mesh's
      shapes, f32 and f64, with both times; (b) phase 3's batch solved again:
@@ -75,17 +82,9 @@ def require(cond, msg):
 
 def median_ms(fn, runs=7):
     """Median of `runs` timed calls (CUDA events, after a warm-up call)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    from tpufem_torch.utils.profiling import median_event_ms
+
+    return median_event_ms(fn, runs)
 
 
 def nbytes(*tensors):
@@ -192,50 +191,71 @@ def check_strain_apply_level(dev, r, p4, lam, mu):
     return out
 
 
-def segment_inputs(g, dev, C, gen):
-    """(msgs, seg, N) as gather_mean_aggregate feeds kernel A on graph g,
-    with the edge list padded to a multiple of 256 by masked (dump) edges."""
-    E = g["edge_index"].shape[1]
-    Ep = (E + 255) // 256 * 256 + 256  # at least 256 dump rows
-    dst = torch.full((Ep,), g["N"], dtype=torch.int32, device=dev)
-    dst[:E] = torch.as_tensor(g["edge_index"][1], device=dev)
-    seg, _ = torch.sort(dst)
-    msgs = torch.randn((Ep, C), generator=gen, device=dev)
-    return msgs, seg, g["N"]
+SEGMENT_SUM_CU = "tpufem_torch/csrc/segment_sum.cu"
+ONE_GRAPH, TRAIN_BATCH = "one graph", "merged batch of 4"
+# name in the kernels' line -> (its entry in profile_aggregation.measure_entries, the shape
+# whose numbers head its line, the TPU code it replaces)
+SEGMENT_ENTRIES = {
+    "segment_rowptr": ("rowptr", ONE_GRAPH, "tpufem/ops/gather_scatter.py:59"),
+    "sorted_segment_sum": ("a C=128", ONE_GRAPH, "tpufem/ops/gather_scatter.py:49"),
+    "gather_row_sum": ("b forward", ONE_GRAPH, "tpufem/ops/gather_scatter.py:190"),
+    "segment_gather": ("c", TRAIN_BATCH, "tpufem/ops/gather_scatter.py:173"),
+}
 
 
-def check_segment_sum(dev, graphs):
-    """Kernel A against the plain f64 sum on the surface graphs' shapes."""
+def check_segment_sum(label, edge_index, edge_mask, num_nodes):
+    """Every entry of csrc/segment_sum.cu on one graph (tensors on the card):
+    the row pointers and kernel C bitwise against their plain versions,
+    kernel A's entries (a) and (b) within 1e-5 of the plain f64 sums, all
+    bitwise repeatable (measure_entries raises otherwise); then each one's
+    event time, device time, plain and library times and bound."""
+    from tpufem_torch.profile_aggregation import WIDTH, entry_line, measure_entries
+
+    out = measure_entries(edge_index, edge_mask, num_nodes)
+    for name, v in out.items():
+        # one add per summed element, a multiply more where the row is weighted
+        flops = {"a": v["E"] * (1 if name.endswith("C=1") else WIDTH),
+                 "b": 2 * v["kept_edges"] * WIDTH}.get(name[0], 0)
+        v.update(bound(v["bytes"], flops, torch.float32))
+        print(entry_line(label, name, v))
+    return out
+
+
+def segment_kernel_entries(seg):
+    """The kernels' line entries of csrc/segment_sum.cu from what phases 4
+    and 5 left in `seg`: "shapes" maps a shape's label to check_segment_sum's
+    result there, "launches" holds phase 4's counts (the line's `launches`),
+    "training" / "inference" / "gradient_check" phase 5's."""
+    # "share" is the bound over the flushed device time (device_us_cold)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_us",
+            "device_us_cold", "share", "share_repeated")
+    return [{"name": name, "route": "cuda", "source": SEGMENT_SUM_CU, "replaces": replaces,
+             "launches": seg["launches"][name],
+             **{k: seg["shapes"][headline][entry][k] for k in keys}, "headline_shape": headline,
+             **{f"{path}_launches": seg[path][name]
+                for path in ("training", "inference", "gradient_check")},
+             "training_step_parts_s": seg["step_parts_s"],
+             "shapes": {f"{lbl} {e}": v for lbl, res in seg["shapes"].items()
+                        for e, v in res.items() if e.split()[0] == entry.split()[0]}}
+            for name, (entry, headline, replaces) in SEGMENT_ENTRIES.items()]
+
+
+def segment_counters():
+    """The launch counters of csrc/segment_sum.cu's wrappers, by the names
+    of the kernels' line."""
     from tpufem_torch.ops import gather_scatter as gs
 
-    gen = torch.Generator(device=dev).manual_seed(1)
-    offs = np.cumsum([0] + [g["N"] for g in graphs])
-    batched = {"N": int(offs[-1]), "edge_index": np.concatenate(
-        [g["edge_index"] + o for g, o in zip(graphs, offs)], axis=1)}
-    out = {}
-    for label, g in (("one graph", graphs[0]), (f"{len(graphs)}-graph batch", batched)):
-        for C in (128, 1):
-            msgs, seg, N = segment_inputs(g, dev, C, gen)
-            y = gs.sorted_segment_sum(msgs, seg, N)
-            ref = gs.sorted_segment_sum_plain(msgs.double(), seg, N)
-            torch.cuda.synchronize()
-            err = (y.double() - ref).abs().max().item()
-            scale = ref.abs().max().item()
-            require(err <= 1e-5 * scale, f"kernel A {label} C={C}: {err:.3e} vs {scale:.3e}")
-            require(torch.equal(y, gs.sorted_segment_sum(msgs, seg, N)),
-                    "kernel A not deterministic")
-            ms = median_ms(lambda: gs.sorted_segment_sum(msgs, seg, N))
-            plain_ms = median_ms(lambda: gs.sorted_segment_sum_plain(msgs, seg, N))
-            acc, seg_l = torch.zeros((N + 1, C), device=dev), seg.long()
-            library_ms = median_ms(lambda: acc.index_add_(0, seg_l, msgs))
-            bd = bound(nbytes(msgs, seg, y), msgs.numel(), torch.float32)
-            print(f"[kernel A] {label}: E={msgs.shape[0]} C={C} N={N}: max|err| {err:.3e} "
-                  f"(scale {scale:.3e}, bar 1e-5 rel); {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
-                  f"index_add_ {library_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
-                  f"({bd['bound_by']})")
-            out[(label, C)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                               "library_ms": library_ms, **bd, "E": msgs.shape[0]}
-    return out
+    return {"segment_rowptr": gs.segment_rowptr, "sorted_segment_sum": gs.sorted_segment_sum,
+            "gather_row_sum": gs.gather_row_sum, "segment_gather": gs.segment_gather}
+
+
+def zero_segment_counters():
+    for fn in segment_counters().values():
+        fn.launches = 0
+
+
+def read_segment_counters():
+    return {name: fn.launches for name, fn in segment_counters().items()}
 
 
 def true_residual_cpu(res, p4, u_nodes, upper, free, lam, mu):
@@ -280,7 +300,8 @@ def main() -> int:
 
     dev = torch.device("cuda")
     kernels, state = run(dev, DOF100K, BATCH)
-    kernels += run_training_path(dev, kernels)
+    run_training_path(dev, state["segment"])
+    kernels = segment_kernel_entries(state["segment"]) + kernels
     kernels += run_gather_path(dev, DOF100K, state)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -301,7 +322,6 @@ def run(dev, res, batch):
     from tpufem_torch.models.metrics import compute_metrics
     from tpufem_torch.models.sage import GraphSAGE, SAGEConfig
     from tpufem_torch.ops import csr_segment_sum as cs
-    from tpufem_torch.ops import gather_scatter as gs
     from tpufem_torch.ops.kernels import build_info, load_kernels
     from tpufem_torch.pipeline.types import PRD_RANGES
 
@@ -327,7 +347,7 @@ def run(dev, res, batch):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     st.strain_apply.launches = 0
-    gs.sorted_segment_sum.launches = 0
+    zero_segment_counters()
     cs.csr_segment_sum.launches = 0
 
     t0 = time.perf_counter()
@@ -341,7 +361,10 @@ def run(dev, res, batch):
     rel, conv = out.rel_residual.cpu().numpy(), out.converged.cpu().numpy()
     faces = bt.surf_faces[bt.sets.surf_all_faces]
     names = ("span_m", "chord_m", "sweep_deg", "thickness_ratio")
-    model = GraphSAGE(SAGEConfig(), generator=torch.Generator().manual_seed(0), device=dev).eval()
+    # "segment", the default: the fused neighbour mean; "pallas": messages, then segment sums
+    model, model_pallas = (
+        GraphSAGE(SAGEConfig(aggregate_impl=impl), generator=torch.Generator().manual_seed(0),
+                  device=dev).eval() for impl in ("segment", "pallas"))
     graphs, preds = [], []
     t0 = time.perf_counter()
     for k in range(batch):
@@ -357,12 +380,23 @@ def run(dev, res, batch):
         preds.append(pred.cpu().numpy())
     torch.cuda.synchronize()
     surrogate_s = time.perf_counter() - t0
-    launches = {"strain_apply": st.strain_apply.launches,
-                "sorted_segment_sum": gs.sorted_segment_sum.launches,
+    fused_launches = read_segment_counters()
+    g = graphs[0]
+    with torch.no_grad():
+        pred_pallas = model_pallas(
+            torch.as_tensor(g.x, device=dev), torch.as_tensor(g.edge_index, device=dev),
+            torch.as_tensor(g.edge_mask, device=dev)).cpu().numpy()
+    launches = {"strain_apply": st.strain_apply.launches, **read_segment_counters(),
                 "csr_segment_sum": cs.csr_segment_sum.launches}
-    print(f"[main path] kernel launches: {launches}")
+    print(f"[main path] kernel launches: {launches} (the fused surrogate forwards alone: "
+          f"{fused_launches})")
     require(launches["strain_apply"] > 0, "kernel B was not launched on the main path")
-    require(launches["sorted_segment_sum"] > 0, "kernel A was not launched on the main path")
+    require(fused_launches["gather_row_sum"] > 0 and fused_launches["segment_rowptr"] > 0,
+            "kernel A entry (b) or the row-pointer kernel was not launched by the fused forward")
+    require(fused_launches["sorted_segment_sum"] == 0 and fused_launches["segment_gather"] == 0,
+            "the fused forward launched the message route's kernels")
+    require(launches["sorted_segment_sum"] > 0 and launches["segment_gather"] > 0,
+            'kernel A entry (a) or kernel C was not launched by the "pallas" forward')
     require(launches["csr_segment_sum"] > 0, "kernel E was not launched by the stencil solve")
 
     # ---- 3. solve checks
@@ -400,28 +434,32 @@ def run(dev, res, batch):
                               torch.as_tensor(g.edge_mask)).numpy()
         diff = np.abs(pred - plain).max()
         require(diff <= 1e-4 * max(1.0, np.abs(plain).max()),
-                f"case {k}: kernel-A forward vs plain forward {diff:.3e}")
+                f"case {k}: fused forward vs plain forward {diff:.3e}")
+    impl_diff = np.abs(pred_pallas - preds[0]).max()
+    require(impl_diff <= 1e-5 * max(1.0, np.abs(preds[0]).max()),
+            f'case 0: "pallas" forward vs "segment" forward {impl_diff:.3e}')
     m = compute_metrics(preds[0], graphs[0].stress_vm, graphs[0].loss_mask)["masked_nodes"]
     print(f"[surrogate] GraphSAGE(SAGEConfig()) on {batch} graphs "
           f"({graphs[0].num_nodes} nodes, {graphs[0].num_edges} edges each): "
-          f"{surrogate_s:.3f} s incl. graph building; equals the plain-aggregation forward "
-          f"(1e-4)")
+          f"{surrogate_s:.3f} s incl. graph building; the fused forward equals the "
+          f"plain-aggregation forward on the CPU (1e-4) and, on case 0, the \"pallas\" forward "
+          f"(max |diff| {impl_diff:.3e}, bar 1e-5)")
     print(f"[surrogate] UNTRAINED random weights, case 0 vs FEM: MAE {m['mae_pa'] / 1e6:.3f} MPa "
           f"rel {m['rel_mae']:.3f} (meaningless until a checkpoint exists)")
-    ka = check_segment_sum(
-        dev, [{"N": g.num_nodes, "edge_index": g.edge_index} for g in graphs])
+    offs = np.cumsum([0] + [g.num_nodes for g in graphs])
+    merged = (np.concatenate([g.edge_index + np.int32(o) for g, o in zip(graphs, offs)], axis=1),
+              np.concatenate([g.edge_mask for g in graphs]), int(offs[-1]))
+    shapes = {label: check_segment_sum(label, torch.as_tensor(ei, device=dev),
+                                       torch.as_tensor(em, device=dev), n)
+              for label, (ei, em, n) in ((ONE_GRAPH, (graphs[0].edge_index, graphs[0].edge_mask,
+                                                      graphs[0].num_nodes)),
+                                         (f"{batch}-graph batch", merged))}
 
-    one = ka[("one graph", 128)]
     state = {"solver": solver, "p4": p4, "out": out,
-             "stencil_csr_launches": launches["csr_segment_sum"]}
+             "stencil_csr_launches": launches["csr_segment_sum"],
+             "segment": {"shapes": shapes, "launches": launches}}
     b64, b32 = kb["f64"], kb["f32"]
     return [
-        {"name": "sorted_segment_sum", "route": "cuda", "source": "tpufem_torch/csrc/segment_sum.cu",
-         "replaces": "tpufem/ops/gather_scatter.py:49", "launches": launches["sorted_segment_sum"],
-         "max_abs_err": one["max_abs_err"], "ms": one["ms"], "plain_ms": one["plain_ms"],
-         "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
-         "library_ms": one["library_ms"],
-         "shapes": {f"{lbl} C={c}": v for (lbl, c), v in ka.items()}},
         {"name": "strain_apply", "route": "cuda", "source": "tpufem_torch/csrc/strain_apply.cu",
          "replaces": "tpufem/fem/stencil.py:249", "launches": launches["strain_apply"],
          "max_abs_err": b64["max_abs_err"], "ms": b64["ms"], "plain_ms": b64["plain_ms"],
@@ -465,71 +503,60 @@ def time_step_parts(dev, model, batch, runs=5):
 
 def check_gradients(dev, graphs):
     """Every parameter's gradient of one merged batch (dropout off) on the
-    card (kernels A and C) against the same model on the CPU (plain path),
-    to 1e-4 of each tensor's max |grad|."""
+    card against the same model on the CPU (plain path), to 1e-4 of each
+    tensor's max |grad|, under both aggregate_impl values: "segment" runs
+    kernel A entry (b) forward and backward, "pallas" kernels C and A entry
+    (a) forward and kernels C and A entry (b) backward. Returns the launches
+    of both runs together."""
     from tpufem_torch.models.sage import GraphSAGE, SAGEConfig
     from tpufem_torch.models.train import GraphSet, Trainer
 
-    cfg = SAGEConfig(dropout=0.0)
-    grads, losses = {}, {}
-    for d in (dev, torch.device("cpu")):
-        model = GraphSAGE(cfg, generator=torch.Generator().manual_seed(0), device=d).train()
-        loss = Trainer._loss_fn(model, GraphSet(graphs, d).batch(range(len(graphs))))
-        loss.backward()
-        losses[d.type] = float(loss.detach())
-        grads[d.type] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
-    worst = 0.0
-    for name, g_cpu in grads["cpu"].items():
-        err = (grads["cuda"][name] - g_cpu).abs().max().item()
-        scale = g_cpu.abs().max().item()
-        require(err <= 1e-4 * scale, f"grad {name}: card vs CPU {err:.3e} > 1e-4 x {scale:.3e}")
-        worst = max(worst, err / max(scale, 1e-30))
-    print(f"[train] gradients of one merged batch ({len(graphs)} graphs, dropout off): "
-          f"{len(grads['cpu'])} tensors, card (kernels A+C) vs CPU plain path: worst "
-          f"|err|/max|grad| {worst:.3e} (bar 1e-4); loss {losses['cuda']:.6f} vs "
-          f"{losses['cpu']:.6f}")
-    return worst
+    total = dict.fromkeys(segment_counters(), 0)
+    for impl in ("segment", "pallas"):
+        cfg = SAGEConfig(dropout=0.0, aggregate_impl=impl)
+        grads, losses = {}, {}
+        zero_segment_counters()
+        for d in (dev, torch.device("cpu")):
+            model = GraphSAGE(cfg, generator=torch.Generator().manual_seed(0), device=d).train()
+            loss = Trainer._loss_fn(model, GraphSet(graphs, d).batch(range(len(graphs))))
+            loss.backward()
+            losses[d.type] = float(loss.detach())
+            grads[d.type] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        counts = read_segment_counters()
+        n_layers = cfg.num_layers
+        want = ({"gather_row_sum": 2 * n_layers, "sorted_segment_sum": 0, "segment_gather": 0}
+                if impl == "segment" else
+                {"gather_row_sum": n_layers, "sorted_segment_sum": 2 * n_layers,
+                 "segment_gather": 2 * n_layers})
+        require(all(counts[k] == v for k, v in want.items()) and counts["segment_rowptr"] == 2,
+                f"aggregate_impl={impl}: launches {counts}, expected {want} and 2 row-pointer "
+                f"launches")
+        worst = 0.0
+        for name, g_cpu in grads["cpu"].items():
+            err = (grads["cuda"][name] - g_cpu).abs().max().item()
+            scale = g_cpu.abs().max().item()
+            require(err <= 1e-4 * scale,
+                    f"{impl}: grad {name}: card vs CPU {err:.3e} > 1e-4 x {scale:.3e}")
+            worst = max(worst, err / max(scale, 1e-30))
+        print(f"[train] gradients of one merged batch ({len(graphs)} graphs, dropout off), "
+              f"aggregate_impl={impl}: {len(grads['cpu'])} tensors, card vs CPU plain path: "
+              f"worst |err|/max|grad| {worst:.3e} (bar 1e-4); loss {losses['cuda']:.6f} vs "
+              f"{losses['cpu']:.6f}; launches {counts}")
+        total = {k: total[k] + counts[k] for k in total}
+    return total
 
 
-def check_segment_gather(dev, batch):
-    """Kernel C against segment_gather_plain at the merged batch's shape:
-    the ids gather_mean_aggregate sorts, cotangent rows of width 128."""
-    from tpufem_torch.ops import gather_scatter as gs
-
-    N = batch.x.shape[0]
-    dst = batch.edge_index[1]
-    dst_eff = torch.where(batch.edge_mask > 0, dst, torch.full_like(dst, N))
-    seg = torch.sort(dst_eff).values.contiguous()
-    gen = torch.Generator(device=dev).manual_seed(3)
-    g = torch.randn((N, 128), generator=gen, device=dev)
-    out = gs.segment_gather(g, seg, N)
-    plain = gs.segment_gather_plain(g, seg, N)
-    torch.cuda.synchronize()
-    require(torch.equal(out, plain), "kernel C differs from its plain version (a copy: bitwise)")
-    require(torch.equal(out, gs.segment_gather(g, seg, N)), "kernel C not deterministic")
-    ms = median_ms(lambda: gs.segment_gather(g, seg, N))
-    plain_ms = median_ms(lambda: gs.segment_gather_plain(g, seg, N))
-    g_pad = torch.cat([g, torch.zeros((1, g.shape[1]), device=dev)])
-    idx = torch.clamp(seg.long(), 0, N)
-    library_ms = median_ms(lambda: torch.index_select(g_pad, 0, idx))
-    bd = bound(nbytes(g, seg, out), 0, torch.float32)
-    print(f"[kernel C] segment_gather merged batch: E={seg.shape[0]} C=128 N={N}: bitwise "
-          f"equal to plain, deterministic; {ms:.4f} ms vs plain {plain_ms:.4f} ms, index_select "
-          f"{library_ms:.4f} ms (median of 7), bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
-    return {"max_abs_err": (out - plain).abs().max().item(), "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, **bd, "E": seg.shape[0]}
-
-
-def run_training_path(dev, kernels):
+def run_training_path(dev, seg):
     """Phase 5: dataset CLIs -> train_gnn -> inference_gnn at DOF100K, then
-    the gradient, step-time and kernel C checks. Reuses no state of phases
-    1-4. Returns kernel C's report entry (and adds the training launches to
-    kernel A's)."""
+    the gradient and step-time checks and every entry of segment_sum.cu at
+    the merged batch's shape. Reuses no state of phases 1-4. Adds to `seg`
+    (phase 4's record of those kernels) the merged batch's shape, the
+    launches of training, inference and the gradient check, and the step's
+    parts."""
     from tpufem_torch.fem import stencil as st
     from tpufem_torch.models.dataset import WingStressDataset
     from tpufem_torch.models.sage import GraphSAGE, SAGEConfig
     from tpufem_torch.models.train import GraphSet
-    from tpufem_torch.ops import gather_scatter as gs
     from tpufem_torch.pipeline.config import get_paths
     from tpufem_torch.scripts import (
         generate_fem_dataset,
@@ -587,15 +614,13 @@ def run_training_path(dev, kernels):
               f"{wall['mesh'] / N_WINGS:.4f}, FEM solve {(wall['fem'] - write_s) / N_WINGS:.4f}, "
               f"writing {write_s / N_WINGS:.4f} (FEM CLI wall {wall['fem']:.3f} s)")
 
-        gs.sorted_segment_sum.launches = 0
-        gs.segment_gather.launches = 0
+        zero_segment_counters()
         cli("train", train_gnn, ["--epochs", str(EPOCHS), "--batch_size", "4",
                                  "--device", "cuda"])
-        train_launches = {"sorted_segment_sum": gs.sorted_segment_sum.launches,
-                          "segment_gather": gs.segment_gather.launches}
-        print(f"[train] kernel launches during training: {train_launches}")
-        require(train_launches["sorted_segment_sum"] > 0, "kernel A not launched in training")
-        require(train_launches["segment_gather"] > 0, "kernel C not launched in training")
+        seg["training"] = read_segment_counters()
+        print(f"[train] kernel launches during training (the fused route): {seg['training']}")
+        require(seg["training"]["gather_row_sum"] > 0 and seg["training"]["segment_rowptr"] > 0,
+                "kernel A entry (b) or the row-pointer kernel not launched in training")
         log = json.loads((paths.models / "training_log.json").read_text())
         train_losses = [e["train_loss"] for e in log["log"]]
         val_losses = [e["val_loss"] for e in log["log"]]
@@ -612,9 +637,10 @@ def run_training_path(dev, kernels):
               f"s/step {epoch_s[-1] / steps:.4f} (last epoch / steps); CLI wall "
               f"{wall['train']:.3f} s")
 
-        gs.sorted_segment_sum.launches = 0
+        zero_segment_counters()
         cli("inference", inference_gnn, ["--split", "test", "--device", "cuda"])
-        require(gs.sorted_segment_sum.launches > 0, "kernel A not launched in inference")
+        seg["inference"] = read_segment_counters()
+        require(seg["inference"]["gather_row_sum"] > 0, "kernel A not launched in inference")
         test_ids = ds.splits["test"]
         require(len(test_ids) == 3, f"test split {test_ids}")
         inf_ms = []
@@ -633,25 +659,16 @@ def run_training_path(dev, kernels):
               f"{summ['mae_mpa_masked_mean']:.3f} MPa after {EPOCHS} epochs")
 
         graphs = ds.graphs("train")[:4]
-        check_gradients(dev, graphs)
+        seg["gradient_check"] = check_gradients(dev, graphs)
         batch = GraphSet(graphs, dev).batch(range(4))
         model = GraphSAGE(SAGEConfig(), generator=torch.Generator().manual_seed(0), device=dev)
         parts = time_step_parts(dev, model, batch)
         print(f"[train] step parts on one merged batch (N={batch.x.shape[0]}, "
               f"E={batch.edge_index.shape[1]}), median of 5: forward {parts['forward_s']:.4f} s, "
               f"backward {parts['backward_s']:.4f} s, optimizer {parts['optimizer_s']:.4f} s")
-        kc = check_segment_gather(dev, batch)
-
-    for k in kernels:
-        if k["name"] == "sorted_segment_sum":
-            k["training_launches"] = train_launches["sorted_segment_sum"]
-    return [{"name": "segment_gather", "route": "cuda",
-             "source": "tpufem_torch/csrc/segment_sum.cu",
-             "replaces": "tpufem/ops/gather_scatter.py:173",
-             "launches": train_launches["segment_gather"], "max_abs_err": kc["max_abs_err"],
-             "ms": kc["ms"], "plain_ms": kc["plain_ms"], "bound_ms": kc["bound_ms"],
-             "bound_by": kc["bound_by"], "library_ms": kc["library_ms"], "E": kc["E"],
-             "step_parts_s": parts}]
+        seg["shapes"][TRAIN_BATCH] = check_segment_sum(TRAIN_BATCH, batch.edge_index,
+                                                       batch.edge_mask, batch.x.shape[0])
+        seg["step_parts_s"] = parts
 
 
 # ---------------------------------------------------------------- phase 6
@@ -671,6 +688,7 @@ TET4_FORCE_FLOPS = 168
 def check_tet4_force(grads, vols, tets, u, lam, mu):
     """Kernel D against tet4_element_force_plain at the DOF100K mesh's shapes."""
     from tpufem_torch.fem import assembly as asm
+    from tpufem_torch.utils.profiling import device_time
 
     fe = asm.tet4_element_force(grads, vols, tets, u, lam, mu)
     ref = asm.tet4_element_force_plain(grads, vols, tets, u, lam, mu)
@@ -690,19 +708,31 @@ def check_tet4_force(grads, vols, tets, u, lam, mu):
     ms32, plain32 = timed_pair(lambda: asm.tet4_element_force(g32, v32, tets, u32, lam, mu),
                                lambda: asm.tet4_element_force_plain(g32, v32, tets, u32, lam, mu))
     bd = bound(nbytes(grads, vols, tets, u, fe), TET4_FORCE_FLOPS * tets.shape[0], torch.float64)
+    bd32 = bound(nbytes(g32, v32, tets, u32, fe.float()), TET4_FORCE_FLOPS * tets.shape[0],
+                 torch.float32)
+    dev_us = device_time(lambda: asm.tet4_element_force(grads, vols, tets, u, lam, mu),
+                         "tet4_force_kernel")["device_us"]
+    dev_us32 = device_time(lambda: asm.tet4_element_force(g32, v32, tets, u32, lam, mu),
+                           "tet4_force_kernel")["device_us"]
+    share, share32 = bd["bound_ms"] * 1e3 / dev_us, bd32["bound_ms"] * 1e3 / dev_us32
     print(f"[kernel D] tet4_element_force T={tets.shape[0]} N={u.shape[0]}: f64 max|err| "
           f"{err:.3e} (scale {scale:.3e}, bar 1e-12 rel); f32 err vs f64 {e_k:.3e} (plain f32 "
           f"{e_p:.3e}, bar 2x); f64 {ms:.4f} ms vs plain {plain_ms:.4f} ms, f32 {ms32:.4f} ms "
-          f"vs plain {plain32:.4f} ms (median of 7); f64 bound {bd['bound_ms']:.4f} ms "
-          f"({bd['bound_by']}), no one-call PyTorch equivalent")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
-            "f32": {"max_abs_err": e_k, "plain_max_abs_err": e_p, "ms": ms32, "plain_ms": plain32},
+          f"vs plain {plain32:.4f} ms (median of 7); device time per launch (torch.profiler) "
+          f"f64 {dev_us:.2f} us, bound {bd['bound_ms'] * 1e3:.2f} us ({bd['bound_by']}): "
+          f"{share:.1%}; f32 {dev_us32:.2f} us, bound {bd32['bound_ms'] * 1e3:.2f} us: "
+          f"{share32:.1%}; no one-call PyTorch equivalent")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "device_us": dev_us,
+            "share": share,
+            "f32": {"max_abs_err": e_k, "plain_max_abs_err": e_p, "ms": ms32, "plain_ms": plain32,
+                    "device_us": dev_us32, "bound_ms": bd32["bound_ms"], "share": share32},
             "T": tets.shape[0]}, fe
 
 
 def check_csr_sum(label, vals64, plan):
     """Kernel E against csr_segment_sum_plain on one plan, f64 and f32."""
     from tpufem_torch.ops import csr_segment_sum as cs
+    from tpufem_torch.utils.profiling import device_time
 
     out = cs.csr_segment_sum(vals64, plan)
     ref = cs.csr_segment_sum_plain(vals64, plan)
@@ -729,14 +759,23 @@ def check_csr_sum(label, vals64, plan):
     acc = torch.zeros_like(out)
     library_ms = median_ms(lambda: acc.index_add_(0, ids, vals64))
     bd = bound(nbytes(vals64, plan.order, plan.starts, out), vals64.numel(), torch.float64)
+    bd32 = bound(nbytes(v32, plan.order, plan.starts, o32), v32.numel(), torch.float32)
+    dev_us = device_time(lambda: cs.csr_segment_sum(vals64, plan),
+                         "csr_segment_sum_kernel")["device_us"]
+    dev_us32 = device_time(lambda: cs.csr_segment_sum(v32, plan),
+                           "csr_segment_sum_kernel")["device_us"]
+    share, share32 = bd["bound_ms"] * 1e3 / dev_us, bd32["bound_ms"] * 1e3 / dev_us32
     print(f"[kernel E] csr_segment_sum {label}: R={R} C={C} N={plan.num_segments}: f64 max|err| "
           f"{err:.3e} (scale {scale:.3e}, bar 1e-12 rel), bitwise deterministic; f32 err vs f64 "
           f"{e_k:.3e} (plain f32 {e_p:.3e}, bar 2x); f64 {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
           f"index_add_ {library_ms:.4f} ms, f32 {ms32:.4f} ms vs plain {plain32:.4f} ms (median "
-          f"of 7); f64 bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+          f"of 7); device time per launch (torch.profiler) f64 {dev_us:.2f} us, bound "
+          f"{bd['bound_ms'] * 1e3:.2f} us ({bd['bound_by']}): {share:.1%}; f32 {dev_us32:.2f} us, "
+          f"bound {bd32['bound_ms'] * 1e3:.2f} us: {share32:.1%}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bd,
-            "R": R, "C": C,
-            "f32": {"max_abs_err": e_k, "plain_max_abs_err": e_p, "ms": ms32, "plain_ms": plain32}}
+            "device_us": dev_us, "share": share, "R": R, "C": C,
+            "f32": {"max_abs_err": e_k, "plain_max_abs_err": e_p, "ms": ms32, "plain_ms": plain32,
+                    "device_us": dev_us32, "bound_ms": bd32["bound_ms"], "share": share32}}
 
 
 def gather_true_residual_cpu(mesh, bs, u, lam, mu):
@@ -937,7 +976,7 @@ def run_gather_path(dev, res, state):
          "replaces": "tpufem/fem/assembly.py:60", "launches": launches["tet4_element_force"],
          "max_abs_err": kd["max_abs_err"], "ms": kd["ms"], "plain_ms": kd["plain_ms"],
          "bound_ms": kd["bound_ms"], "bound_by": kd["bound_by"], "library_ms": None,
-         "f32": kd["f32"], "T": kd["T"]},
+         "device_us": kd["device_us"], "share": kd["share"], "f32": kd["f32"], "T": kd["T"]},
         {"name": "csr_segment_sum", "route": "cuda",
          "source": "tpufem_torch/csrc/csr_segment_sum.cu",
          "replaces": "tpufem/fem/assembly.py:77", "launches": launches["csr_segment_sum"],
@@ -945,7 +984,9 @@ def run_gather_path(dev, res, state):
          "max_abs_err": ke["incidence C=3"]["max_abs_err"], "ms": ke["incidence C=3"]["ms"],
          "plain_ms": ke["incidence C=3"]["plain_ms"], "bound_ms": ke["incidence C=3"]["bound_ms"],
          "bound_by": ke["incidence C=3"]["bound_by"],
-         "library_ms": ke["incidence C=3"]["library_ms"], "shapes": ke},
+         "library_ms": ke["incidence C=3"]["library_ms"],
+         "device_us": ke["incidence C=3"]["device_us"], "share": ke["incidence C=3"]["share"],
+         "shapes": ke},
     ]
 
 

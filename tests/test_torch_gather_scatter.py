@@ -51,7 +51,7 @@ def test_gather_mean_matches_with_masked_edges():
     em = (rng.uniform(size=E) > 0.2).astype(np.float32)
     ref = np.asarray(segment_mean_aggregate(jnp.asarray(h), jnp.asarray(ei), jnp.asarray(em), N))
     pallas = np.asarray(gather_mean_aggregate(jnp.asarray(h), jnp.asarray(ei), jnp.asarray(em), N))
-    out = tgs.gather_mean_aggregate(
-        torch.as_tensor(h), torch.as_tensor(ei), torch.as_tensor(em), N).numpy()
+    plan = tgs.aggregation_plan(torch.as_tensor(ei), torch.as_tensor(em), N)
+    out = tgs.gather_mean_aggregate(torch.as_tensor(h), plan).numpy()
     np.testing.assert_allclose(out, ref, rtol=2e-4, atol=2e-5)
     np.testing.assert_allclose(out, pallas, rtol=2e-4, atol=2e-5)

@@ -34,30 +34,77 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("C", [128, 1])
-def test_segment_sum_kernel_matches_plain(cuda, C):
+WIDTHS = [1, 3, 8, 128, 130]  # 8 and 128 take the float4 route when aligned
+
+
+def _rows(rng, shape, dev, offset):
+    """A contiguous f32 tensor of `shape` whose storage starts `offset`
+    floats past a 16-byte boundary (offset 1: the kernels' scalar route)."""
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 4, dtype=torch.float32, device=dev)
+    view = buf[offset:offset + n].view(shape)
+    view.copy_(torch.as_tensor(rng.normal(size=shape).astype(np.float32)))
+    assert view.is_contiguous() and (view.data_ptr() % 16 == 0) == (offset % 4 == 0)
+    return view
+
+
+def _sorted_ids(rng, E, N, dump=40):
+    """E sorted ids over N segments: a third of the segments empty, a long
+    run of empty ones at the end, `dump` rows in the dump segment."""
+    live = rng.choice(N - 50, size=2 * N // 3, replace=False)
+    return np.sort(np.concatenate([rng.choice(live, size=E - dump), np.full(dump, N)])
+                   ).astype(np.int32)
+
+
+ROWPTR_CASES = {
+    "random": lambda rng: (_sorted_ids(rng, 5000, 700), 700),
+    "gaps": lambda rng: (np.array([0, 0, 5, 5, 5, 60, 61, 61, 64, 64], np.int32), 64),
+    "all-dump": lambda rng: (np.full(300, 1000, np.int32), 1000),
+    "empty": lambda rng: (np.zeros(0, np.int32), 17),
+    "ids-out-of-range": lambda rng: (np.array([-3, -1, 0, 2, 2, 9, 9], np.int32), 5),
+}
+
+
+@pytest.mark.parametrize("case", list(ROWPTR_CASES))
+def test_segment_rowptr_kernel_matches_plain(cuda, case):
+    seg, N = ROWPTR_CASES[case](np.random.default_rng(0))
+    seg_t = torch.as_tensor(seg, device=cuda)
+    before = tgs.segment_rowptr.launches
+    out = tgs.segment_rowptr(seg_t, N)
+    torch.cuda.synchronize()
+    assert tgs.segment_rowptr.launches == before + 1
+    assert out.dtype == torch.int32 and out.shape == (N + 1,)
+    assert torch.equal(out, tgs.segment_rowptr_plain(seg_t, N))
+    np.testing.assert_array_equal(out.cpu().numpy(), np.searchsorted(seg, np.arange(N + 1)))
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("C", WIDTHS)
+def test_segment_sum_kernel_matches_plain(cuda, C, offset):
     rng = np.random.default_rng(0)
     E, N = 5000, 700
-    seg = np.sort(np.concatenate([rng.integers(0, N, size=E - 40), np.full(40, N)]))
-    msgs = torch.as_tensor(rng.normal(size=(E, C)).astype(np.float32), device=cuda)
-    seg = torch.as_tensor(seg.astype(np.int32), device=cuda)
+    seg = torch.as_tensor(_sorted_ids(rng, E, N), device=cuda)
+    msgs = _rows(rng, (E, C), cuda, offset)
     before = tgs.sorted_segment_sum.launches
     out = tgs.sorted_segment_sum(msgs, seg, N)
-    out2 = tgs.sorted_segment_sum(msgs, seg, N)
+    out2 = tgs.sorted_segment_sum(msgs, seg, N, tgs.segment_rowptr(seg, N))
     torch.cuda.synchronize()
     assert tgs.sorted_segment_sum.launches == before + 2
     assert torch.equal(out, out2)  # no atomics: the same bits every run
     ref = tgs.sorted_segment_sum_plain(msgs.double(), seg, N)
     err = (out.double() - ref).abs().max().item()
     assert err <= 1e-5 * ref.abs().max().item(), err
+    empty = torch.bincount(seg.long(), minlength=N + 1)[:N] == 0
+    assert empty.sum().item() > 50 and out[empty].abs().max().item() == 0.0
 
 
-def test_segment_gather_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("C", WIDTHS)
+def test_segment_gather_kernel_matches_plain(cuda, C, offset):
     rng = np.random.default_rng(1)
-    E, N, C = 5000, 700, 128
-    seg = np.sort(np.concatenate([rng.integers(0, N, size=E - 40), np.full(40, N)]))
-    g = torch.as_tensor(rng.normal(size=(N, C)).astype(np.float32), device=cuda)
-    seg = torch.as_tensor(seg.astype(np.int32), device=cuda)
+    E, N = 5001, 700  # E is no multiple of the rows a lane group copies
+    seg = torch.as_tensor(rng.permutation(_sorted_ids(rng, E, N)), device=cuda)
+    g = _rows(rng, (N, C), cuda, offset)
     before = tgs.segment_gather.launches
     out = tgs.segment_gather(g, seg, N)
     out2 = tgs.segment_gather(g, seg, N)
@@ -66,39 +113,190 @@ def test_segment_gather_kernel_matches_plain(cuda):
     assert torch.equal(out, out2)
     # a copy: bitwise equal to the plain version; dump rows are zero
     assert torch.equal(out, tgs.segment_gather_plain(g, seg, N))
-    assert out[-40:].abs().max().item() == 0.0
+    assert out[seg == N].abs().max().item() == 0.0 and (seg == N).sum().item() == 40
 
 
-def test_sorted_segment_sum_gradients_on_cuda_match_cpu(cuda):
-    """The segment sum on a CUDA tensor is differentiable (kernel C), and the
-    gradients of the mean aggregation equal the CPU plain path's."""
+def _graph(rng, N, E, frac_mask=False):
+    """Random directed edges; a fifth masked out, nodes >= N - 20 isolated."""
+    ei = rng.integers(0, N - 20, size=(2, E)).astype(np.int32)
+    em = (rng.uniform(size=E) > 0.2).astype(np.float32)
+    if frac_mask:
+        em *= rng.uniform(0.25, 1.0, size=E).astype(np.float32)
+    return ei, em
+
+
+@pytest.mark.parametrize("mode", ["mean", "weighted-sum", "backward"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("C", WIDTHS)
+def test_gather_row_sum_kernel_matches_plain(cuda, C, offset, mode):
+    """Kernel A entry (b) on a plan's rows: the forward mean, the weighted
+    sum, and the backward's form (the transposed plan, weights divided by the
+    gathered row's degree)."""
+    rng = np.random.default_rng(4)
+    N, E = 300, 2500
+    ei, em = _graph(rng, N, E, frac_mask=True)
+    plan = tgs.aggregation_plan(torch.as_tensor(ei, device=cuda),
+                                torch.as_tensor(em, device=cuda), N)
+    x = _rows(rng, (N, C), cuda, offset)
+    if mode == "backward":
+        t = plan.transposed()
+        rowdiv = torch.as_tensor(rng.uniform(0.0, 6.0, size=N).astype(np.float32), device=cuda)
+        args = (x, t.dst, t.w, t.rowptr, rowdiv, False)
+    else:
+        args = (x, plan.src, plan.w, plan.rowptr, None, mode == "mean")
+    before = tgs.gather_row_sum.launches
+    out, deg = tgs.gather_row_sum(*args)
+    out2, deg2 = tgs.gather_row_sum(*args)
+    torch.cuda.synchronize()
+    assert tgs.gather_row_sum.launches == before + 2
+    assert torch.equal(out, out2) and torch.equal(deg, deg2)
+    dbl = [a.double() if a is not None and a.is_floating_point() else a for a in args[:5]]
+    ref, ref_deg = tgs.gather_row_sum_plain(*dbl, args[5])
+    assert (out.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert (deg.double() - ref_deg).abs().max().item() <= 1e-5 * ref_deg.abs().max().item()
+    assert out[N - 20:].abs().max().item() == 0.0  # isolated nodes: empty segments
+
+
+def test_gather_row_sum_without_weights(cuda):
+    rng = np.random.default_rng(5)
+    N, E, C = 300, 2500, 128
+    ei, em = _graph(rng, N, E)
+    plan = tgs.aggregation_plan(torch.as_tensor(ei, device=cuda),
+                                torch.as_tensor(em, device=cuda), N)
+    t = plan.transposed()
+    g = _rows(rng, (E, C), cuda, 0)
+    out, _ = tgs.gather_row_sum(g, t.perm, None, t.rowptr)
+    ref, _ = tgs.gather_row_sum_plain(g.double(), t.perm, None, t.rowptr)
+    assert (out.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+AGGREGATES = {"segment": tgs.segment_mean_aggregate, "pallas": tgs.gather_mean_aggregate}
+
+
+@pytest.mark.parametrize("impl", list(AGGREGATES))
+def test_sorted_segment_sum_gradients_on_cuda_match_cpu(cuda, impl):
+    """Both aggregations on a CUDA tensor are differentiable (the fused
+    kernel over the transposed plan; kernels C and A), the gradients equal
+    the CPU plain path's, and two backward passes give the same bits."""
     rng = np.random.default_rng(2)
     N, E, C = 300, 2000, 32
     h = rng.normal(size=(N, C)).astype(np.float32)
-    ei = rng.integers(0, N, size=(2, E)).astype(np.int32)
-    em = (rng.uniform(size=E) > 0.2).astype(np.float32)
+    ei, em = _graph(rng, N, E, frac_mask=True)
     w = rng.normal(size=(N, C)).astype(np.float32)
     grads = []
-    for dev in (cuda, torch.device("cpu")):
+    for dev in (cuda, cuda, torch.device("cpu")):
         ht = torch.tensor(h, device=dev, requires_grad=True)
-        out = tgs.gather_mean_aggregate(ht, torch.as_tensor(ei, device=dev),
-                                        torch.as_tensor(em, device=dev), N)
+        out = AGGREGATES[impl](ht, tgs.aggregation_plan(
+            torch.as_tensor(ei, device=dev), torch.as_tensor(em, device=dev), N))
         assert out.grad_fn is not None
         (out * torch.as_tensor(w, device=dev)).sum().backward()
         grads.append(ht.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+    assert (grads[0] - grads[2]).abs().max().item() <= 1e-5 * grads[2].abs().max().item()
     before = tgs.segment_gather.launches
     msgs = torch.ones((4, 2), device=cuda, requires_grad=True)
     seg = torch.tensor([0, 0, 1, 2], dtype=torch.int32, device=cuda)
     tgs.sorted_segment_sum(msgs, seg, 2).sum().backward()
     assert tgs.segment_gather.launches == before + 1
     assert msgs.grad.cpu().tolist() == [[1, 1], [1, 1], [1, 1], [0, 0]]
-    assert (grads[0] - grads[1]).abs().max().item() <= 1e-5 * grads[1].abs().max().item()
+
+
+@pytest.mark.parametrize("impl", ["segment", "pallas"])
+def test_model_gradients_on_cuda_match_cpu(cuda, impl):
+    """Every parameter gradient of a small GraphSAGE on the card (dropout
+    off) against the CPU's plain path, and the entries each route launches."""
+    from tpufem_torch.models.sage import GraphSAGE, SAGEConfig
+
+    rng = np.random.default_rng(6)
+    N, E = 400, 2400
+    x = rng.normal(size=(N, 10)).astype(np.float32)
+    ei, em = _graph(rng, N, E)
+    cfg = SAGEConfig(hidden=32, encoder_hidden=16, decoder_hidden=16, num_layers=3,
+                     dropout=0.0, aggregate_impl=impl)
+    counters = (tgs.gather_row_sum, tgs.sorted_segment_sum, tgs.segment_gather,
+                tgs.segment_rowptr)
+    before = [c.launches for c in counters]
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = GraphSAGE(cfg, generator=torch.Generator().manual_seed(0), device=dev).train()
+        out = model(torch.as_tensor(x, device=dev), torch.as_tensor(ei, device=dev),
+                    torch.as_tensor(em, device=dev))
+        (out * out).mean().backward()
+        grads[dev.type] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    fused, seg_sum, gather, rowptr = (c.launches - b for c, b in zip(counters, before))
+    # per layer: fused forward + backward | 2 sums, a gather forward and one backward
+    want = (6, 0, 0, 2) if impl == "segment" else (3, 6, 6, 2)
+    assert (fused, seg_sum, gather, rowptr) == want
+    for name, g_cpu in grads["cpu"].items():
+        err = (grads["cuda"][name] - g_cpu).abs().max().item()
+        assert err <= 1e-4 * g_cpu.abs().max().item(), name
+
+
+def test_fused_mean_is_one_device_kernel_each_way(cuda):
+    """The fused route's forward and backward are one device activity each
+    (kernel A entry (b)), call no library kernel and allocate no (E, C)
+    tensor."""
+    rng = np.random.default_rng(7)
+    N, E, C = 2000, 40000, 128
+    ei, em = _graph(rng, N, E)
+    plan = tgs.aggregation_plan(torch.as_tensor(ei, device=cuda),
+                                torch.as_tensor(em, device=cuda), N)
+    plan.transposed()
+    h = torch.tensor(rng.normal(size=(N, C)).astype(np.float32), device=cuda, requires_grad=True)
+    g = torch.as_tensor(rng.normal(size=(N, C)).astype(np.float32), device=cuda)
+    tgs.segment_mean_aggregate(h, plan).backward(g)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        tgs.segment_mean_aggregate(h, plan).backward(g)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [n for n in names if "row_sum_kernel" in n]
+    # beside the two launches autograd may accumulate h.grad (one add)
+    assert len(kernels) == 2 and len(names) <= 3, names
+    assert torch.cuda.max_memory_allocated() - base < E * C * 4
 
 
 def test_segment_sum_kernel_rejects_bad_input(cuda):
     msgs = torch.zeros((4, 2), dtype=torch.float64, device=cuda)
+    seg = torch.zeros(4, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
-        tgs.sorted_segment_sum(msgs, torch.zeros(4, dtype=torch.int32, device=cuda), 3)
+        tgs.sorted_segment_sum(msgs, seg, 3)
+    with pytest.raises(TypeError):
+        tgs.sorted_segment_sum(msgs.float(), seg.long(), 3)
+    with pytest.raises(ValueError):  # not contiguous
+        tgs.sorted_segment_sum(torch.zeros((2, 4), device=cuda).T, seg, 3)
+    with pytest.raises(ValueError):  # ids on another device
+        tgs.sorted_segment_sum(msgs.float(), seg.cpu(), 3)
+    with pytest.raises(ValueError):  # row pointers of another segment count
+        tgs.sorted_segment_sum(msgs.float(), seg, 3, tgs.segment_rowptr(seg, 5))
+    with pytest.raises(ValueError):
+        tgs.segment_gather(torch.zeros((3, 2), device=cuda), seg, 4)
+    with pytest.raises(TypeError):
+        tgs.segment_rowptr(seg.long(), 3)
+
+
+def test_fused_mean_rejects_bad_input(cuda):
+    N, C = 6, 4
+    ei = torch.tensor([[1, 2, 3, 4], [0, 0, 5, 5]], dtype=torch.int32, device=cuda)
+    em = torch.ones(4, device=cuda)
+    h = torch.zeros((N, C), device=cuda)
+    plan = tgs.aggregation_plan(ei, em, N)
+    with pytest.raises(ValueError):  # a gradient tpufem would give is never dropped silently
+        tgs.segment_mean_aggregate(h, tgs.aggregation_plan(ei, em.clone().requires_grad_(), N))
+    with pytest.raises(TypeError):
+        tgs.segment_mean_aggregate(h.double(), plan)
+    with pytest.raises(ValueError):
+        tgs.segment_mean_aggregate(torch.zeros((C, N), device=cuda).T, plan)
+    with pytest.raises(ValueError):  # a plan of another graph size
+        tgs.segment_mean_aggregate(h, tgs.aggregation_plan(ei, em, N + 1))
+    with pytest.raises(TypeError):  # edges are never converted silently
+        tgs.aggregation_plan(ei.long(), em, N)
+    with pytest.raises(ValueError):
+        tgs.gather_row_sum(h, plan.src, plan.w[:2], plan.rowptr)
+    with pytest.raises(TypeError):
+        tgs.gather_row_sum(h, plan.src.long(), plan.w, plan.rowptr)
 
 
 STRAIN_GRIDS = {

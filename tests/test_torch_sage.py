@@ -56,6 +56,56 @@ def test_forward_matches_flax(flax_model):
     np.testing.assert_allclose(out, ref, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("impl", ["segment", "pallas"])
+def test_forward_matches_flax_under_both_impls(flax_model, impl):
+    """aggregate_impl has tpufem's two meanings: each route of the port
+    against the same route of tpufem (XLA segment mean | the Pallas kernel in
+    interpret mode), same converted weights, f32 tolerance."""
+    _, params, x, ei, em = flax_model
+    ref = np.asarray(FlaxSAGE(FlaxConfig(**CFG, aggregate_impl=impl)).apply(
+        params, jnp.asarray(x), jnp.asarray(ei), jnp.asarray(em)))
+    model = GraphSAGE(SAGEConfig(**CFG, aggregate_impl=impl))
+    model.load_state_dict(flax_to_state_dict(jax.tree_util.tree_map(np.asarray, params)))
+    model.eval()
+    with torch.no_grad():
+        out = model(torch.as_tensor(x), torch.as_tensor(ei), torch.as_tensor(em)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=2e-4, atol=2e-4)
+
+
+def test_the_two_impls_agree_and_share_checkpoints(flax_model):
+    """The fused mean and the message route give the same forward and the
+    same parameter gradients (1e-5), from one state_dict."""
+    _, params, x, ei, em = flax_model
+    sd = flax_to_state_dict(jax.tree_util.tree_map(np.asarray, params))
+    outs, grads = {}, {}
+    for impl in ("segment", "pallas"):
+        model = GraphSAGE(SAGEConfig(**CFG, dropout=0.0, aggregate_impl=impl)).train()
+        model.load_state_dict(sd)
+        out = model(torch.as_tensor(x), torch.as_tensor(ei), torch.as_tensor(em))
+        (out * out).mean().backward()
+        outs[impl] = out.detach().numpy()
+        grads[impl] = {n: p.grad.numpy() for n, p in model.named_parameters()}
+    np.testing.assert_allclose(outs["segment"], outs["pallas"], rtol=1e-5, atol=1e-5)
+    for name, g in grads["segment"].items():
+        np.testing.assert_allclose(g, grads["pallas"][name], rtol=1e-5,
+                                   atol=1e-5 * np.abs(g).max(), err_msg=name)
+
+
+def test_forward_plans_the_graph_once(flax_model, monkeypatch):
+    """GraphSAGE.forward sorts the edges once for all its layers."""
+    import tpufem_torch.models.sage as tsage
+
+    _, _, x, ei, em = flax_model
+    calls = []
+    orig = tsage.aggregation_plan
+    monkeypatch.setattr(tsage, "aggregation_plan", lambda *a: calls.append(1) or orig(*a))
+    for impl in ("segment", "pallas"):
+        model = GraphSAGE(SAGEConfig(**CFG, aggregate_impl=impl)).eval()
+        with torch.no_grad():
+            model(torch.as_tensor(x), torch.as_tensor(ei), torch.as_tensor(em))
+    assert len(calls) == 2
+
+
 def test_config_round_trip_and_seeded_init():
     for impl in ("segment", "pallas"):
         cfg = SAGEConfig(aggregate_impl=impl)

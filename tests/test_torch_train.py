@@ -93,7 +93,8 @@ def test_gather_mean_gradient_matches_pallas_vjp():
 
     ref = np.asarray(jax.grad(jloss)(jnp.asarray(h)))
     ht = torch.tensor(h, requires_grad=True)
-    out = tgs.gather_mean_aggregate(ht, torch.as_tensor(ei), torch.as_tensor(em), N)
+    out = tgs.gather_mean_aggregate(
+        ht, tgs.aggregation_plan(torch.as_tensor(ei), torch.as_tensor(em), N))
     (out * torch.as_tensor(w)).sum().backward()
     np.testing.assert_allclose(ht.grad.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
 
@@ -103,11 +104,13 @@ def test_degree_sum_runs_no_backward():
     weights carry no gradient, so the backward runs once per layer."""
     calls = []
     orig = tgs.segment_gather
+    h = torch.randn(10, 4, requires_grad=True)
+    ei = torch.tensor([[1, 2, 3, 4], [0, 0, 5, 5]], dtype=torch.int32)
+    # the forward gathers h[src] through segment_gather too: count the backward's calls
+    loss = tgs.gather_mean_aggregate(h, tgs.aggregation_plan(ei, torch.ones(4), 10)).sum()
     tgs.segment_gather = lambda *a: calls.append(1) or orig(*a)
     try:
-        h = torch.randn(10, 4, requires_grad=True)
-        ei = torch.tensor([[1, 2, 3, 4], [0, 0, 5, 5]], dtype=torch.int32)
-        tgs.gather_mean_aggregate(h, ei, torch.ones(4), 10).sum().backward()
+        loss.backward()
     finally:
         tgs.segment_gather = orig
     assert len(calls) == 1

@@ -6,11 +6,17 @@
   decoder MLP 128 -> 64 -> 1
 
 SAGEConv matches PyG's default: h' = W_l h_i + b + W_r mean_{j in N(i)} h_j.
-The mean aggregation always goes through the sorted segment sum
-(tpufem_torch.ops.gather_scatter; CUDA kernels A forward and C backward on
-the card). tpufem's two ``aggregate_impl`` values split the TPU's
-VMEM-capped Pallas kernel from XLA scatter; here they name the same
-function, and the field stays in SAGEConfig so that configs round-trip.
+The mean aggregation goes through tpufem_torch.ops.gather_scatter, planned
+once per forward (one stable sort by destination for all layers), and
+``SAGEConfig.aggregate_impl`` has tpufem's two meanings:
+  "segment" (default)  the fused neighbour mean, ``segment_mean_aggregate``:
+                       one launch of CUDA kernel A entry (b) per layer
+                       forward, one more backward, no (E, C) tensor (tpufem's
+                       function of that name, which XLA fuses);
+  "pallas"             ``gather_mean_aggregate``: the messages materialised,
+                       then the sorted segment sum, kernel A entry (a) forward
+                       and kernel C backward (tpufem's route through
+                       ``sorted_segment_sum_pallas``).
 """
 
 from __future__ import annotations
@@ -21,10 +27,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpufem_torch.ops.gather_scatter import gather_mean_aggregate
+from tpufem_torch.ops.gather_scatter import (
+    AggregationPlan,
+    aggregation_plan,
+    gather_mean_aggregate,
+    segment_mean_aggregate,
+)
 
 # flax.linen.LayerNorm's epsilon (torch's default is 1e-5)
 LAYERNORM_EPS = 1e-6
+AGGREGATIONS = {"segment": segment_mean_aggregate, "pallas": gather_mean_aggregate}
 
 
 @dataclass(frozen=True)
@@ -35,7 +47,7 @@ class SAGEConfig:
     decoder_hidden: int = 64
     num_layers: int = 4
     dropout: float = 0.1
-    aggregate_impl: str = "segment"  # "segment" | "pallas": the same path here
+    aggregate_impl: str = "segment"  # "segment" | "pallas"
 
     def to_json_dict(self) -> dict:
         return {
@@ -56,13 +68,17 @@ class SAGEConfig:
 class SAGEConv(nn.Module):
     """PyG-equivalent SAGEConv with mean aggregation."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int, aggregate_impl: str = "segment"):
         super().__init__()
+        if aggregate_impl not in AGGREGATIONS:
+            raise ValueError(f"aggregate_impl {aggregate_impl!r} is not one of "
+                             f"{sorted(AGGREGATIONS)}")
+        self.aggregate = AGGREGATIONS[aggregate_impl]
         self.lin_self = nn.Linear(in_features, features)
         self.lin_neigh = nn.Linear(in_features, features, bias=False)
 
-    def forward(self, h, edge_index, edge_mask):
-        agg = gather_mean_aggregate(h, edge_index, edge_mask, h.shape[0])
+    def forward(self, h, plan: AggregationPlan):
+        agg = self.aggregate(h, plan)
         return self.lin_self(h) + self.lin_neigh(agg)
 
 
@@ -83,7 +99,8 @@ class GraphSAGE(nn.Module):
         self.config = cfg
         self.enc1 = nn.Linear(cfg.in_dim, cfg.encoder_hidden)
         self.enc2 = nn.Linear(cfg.encoder_hidden, cfg.hidden)
-        self.sage = nn.ModuleList(SAGEConv(cfg.hidden, cfg.hidden) for _ in range(cfg.num_layers))
+        self.sage = nn.ModuleList(SAGEConv(cfg.hidden, cfg.hidden, cfg.aggregate_impl)
+                                  for _ in range(cfg.num_layers))
         self.ln = nn.ModuleList(
             nn.LayerNorm(cfg.hidden, eps=LAYERNORM_EPS) for _ in range(cfg.num_layers)
         )
@@ -109,9 +126,10 @@ class GraphSAGE(nn.Module):
     def forward(self, x, edge_index, edge_mask, generator=None):
         h = torch.relu(self.enc1(x))
         h = torch.relu(self.enc2(h))
+        plan = aggregation_plan(edge_index, edge_mask, x.shape[0])  # one sort for all layers
         for conv, ln in zip(self.sage, self.ln):
             res = h
-            h = conv(h, edge_index, edge_mask)
+            h = conv(h, plan)
             h = torch.relu(ln(h))
             h = self._dropout(h, generator)
             h = h + res

@@ -33,9 +33,14 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # (msgs, seg, out, E, C, num_segments, stream)
+    # (seg, rowptr, E, num_segments, stream)
+    "tpufem_segment_rowptr_i32": [_P, _P, ctypes.c_longlong, ctypes.c_int, _P],
+    # (msgs, rowptr, out, E, C, num_segments, stream)
     "tpufem_sorted_segment_sum_f32": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                                       ctypes.c_int, _P],
+    # (x, idx, w, rowdiv, rowptr, out, deg_out, x_rows, C, num_segments, normalize, stream)
+    "tpufem_gather_row_sum_f32": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                                  ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
     # (g, seg, out, E, C, num_segments, stream)
     "tpufem_segment_gather_f32": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                                   ctypes.c_int, _P],

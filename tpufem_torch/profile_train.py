@@ -6,9 +6,11 @@ merges them into one training batch as Trainer does (N=46,080 padded nodes,
 E=275,968 padded edges) and runs full-width training steps (SAGEConfig():
 dropout on, clip 1.0, AdamW): five unprofiled steps for the step seconds, then
 five under torch.profiler. Prints the device's busy share of the profiled
-steps and device time by op; the full table goes to --out.
+steps, the device activities per step, the launches and device time per step
+of each segment-sum entry (csrc/segment_sum.cu) and device time by op; the
+full table goes to --out. --aggregate_impl picks the aggregation route.
 
-Usage: python -m tpufem_torch.profile_train [--out PATH]
+Usage: python -m tpufem_torch.profile_train [--aggregate_impl segment|pallas] [--out PATH]
 """
 
 from __future__ import annotations
@@ -30,6 +32,20 @@ from tpufem_torch.pipeline.types import PRD_RANGES
 from tpufem_torch.sets import build_boundary_sets
 
 _NAMES = ("span_m", "chord_m", "sweep_deg", "thickness_ratio")
+STEPS = 5  # timed, and then profiled
+
+
+def segment_entry(kernel_name: str) -> str | None:
+    """Which entry of csrc/segment_sum.cu a device kernel's name (mangled or
+    not) belongs to, or None."""
+    if "row_sum_kernel" in kernel_name:
+        fused = "Lb1" in kernel_name or "true" in kernel_name
+        return "A(b) gather_row_sum" if fused else "A(a) sorted_segment_sum"
+    for key, entry in (("segment_gather_kernel", "C segment_gather"),
+                       ("segment_rowptr_kernel", "segment_rowptr")):
+        if key in kernel_name:
+            return entry
+    return None
 
 
 def seeded_graphs(n: int, seed: int = 0):
@@ -52,13 +68,15 @@ def seeded_graphs(n: int, seed: int = 0):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--aggregate_impl", default="segment", choices=["segment", "pallas"])
     ap.add_argument("--out", default=None, help="file for the full by-op table")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    trainer = Trainer(TrainConfig(clip_norm=1.0, model=SAGEConfig()), device=dev)
+    trainer = Trainer(TrainConfig(clip_norm=1.0, model=SAGEConfig(aggregate_impl=args.aggregate_impl)),
+                      device=dev)
     model, opt = trainer.init()
     batch = GraphSet(seeded_graphs(4), dev).batch(range(4))
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -70,20 +88,29 @@ def main(argv=None) -> int:
 
     steps(2)  # warm-up: cuBLAS handles, the kernel library
     t0 = time.perf_counter()
-    steps(5)
-    wall = (time.perf_counter() - t0) / 5
-    print(f"[unprofiled] batch N={batch.x.shape[0]} E={batch.edge_index.shape[1]}: "
-          f"{wall * 1e3:.3f} ms per step (mean of 5)")
+    steps(STEPS)
+    wall = (time.perf_counter() - t0) / STEPS
+    print(f"[unprofiled] aggregate_impl={args.aggregate_impl}, batch N={batch.x.shape[0]} "
+          f"E={batch.edge_index.shape[1]}: {wall * 1e3:.3f} ms per step (mean of {STEPS})")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        steps(5)
+        steps(STEPS)
         pwall = time.perf_counter() - t0
     dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_s = sum(e.time_range.elapsed_us() for e in dev_events) / 1e6
-    print(f"[profiled] 5 steps in {pwall:.3f} s; device busy {busy_s:.4f} s in "
-          f"{len(dev_events)} device activities ({len(dev_events) / 5:.0f} per step); "
-          f"{busy_s / pwall:.1%} of the profiled wall, {busy_s / (5 * wall):.1%} of the "
-          f"unprofiled wall")
+    print(f"[profiled] {STEPS} steps in {pwall:.3f} s; device busy {busy_s:.4f} s "
+          f"({busy_s / STEPS * 1e3:.3f} ms per step) in {len(dev_events)} device activities "
+          f"({len(dev_events) / STEPS:.0f} per step); {busy_s / pwall:.1%} of the profiled "
+          f"wall, {busy_s / (STEPS * wall):.1%} of the unprofiled wall")
+    by_entry: dict[str, list[float]] = {}
+    for e in dev_events:
+        entry = segment_entry(e.name)
+        if entry:
+            by_entry.setdefault(entry, []).append(e.time_range.elapsed_us())
+    for entry, us in sorted(by_entry.items()):
+        print(f"[profiled] {entry}: {len(us) / STEPS:.0f} launches per step, "
+              f"{sum(us) / len(us):.2f} us each, {sum(us) / STEPS:.1f} us per step "
+              f"({sum(us) / (busy_s * 1e6):.1%} of device time)")
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
     if args.out:
         with open(args.out, "w") as f:
