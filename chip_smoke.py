@@ -36,19 +36,27 @@ trained checkpoint exists). Along the way:
      backward launches kernels C and A entry (b)), the step's
      forward/backward/optimizer times, and every entry of segment_sum.cu
      again at the merged batch's shape (kernel C's headline shape);
-  6. the gather path: (a) kernels D (tet4_element_force) and E
-     (csr_segment_sum) against their plain versions at the DOF100K mesh's
-     shapes, f32 and f64, with both times; (b) phase 3's batch solved again:
-     the same iterations and bitwise-equal u / stress6 / vm (kernel E's fixed
-     summation order); (c) the first wing of the batch at DOF100K through
-     solve_wing_case in f64 with the line + RBM preconditioner (TRUE f64
+  6. the gather path: (a) kernel D (stiffness_apply: the gather operator's
+     mask, element forces, per-node sum and Dirichlet identity in one launch)
+     against the plain composition at the DOF100K mesh's shapes, f64 and f32,
+     masked and unmasked, and on the same mesh with its nodes renumbered by a
+     seeded permutation (a stand-in for a user mesh), bitwise repeatable,
+     exactly 1 launch and 1 device activity per apply, with its event times,
+     device time (repeated and with the L2 flushed) and bound; kernel E
+     (csr_segment_sum) against its plain version, f32 and f64, with both
+     times; (b) phase 3's batch solved again: the same iterations and
+     bitwise-equal u / stress6 / vm (kernel E's fixed summation order); (c)
+     the first wing of the batch at DOF100K through solve_wing_case in f64
+     with the line + RBM preconditioner, twice, bitwise equal (TRUE f64
      residual recomputed on the CPU, against phase 3's stencil solution),
      then through the FEM stage with engine="gather" and the default f32
      config (down the solve ladder, with GLBs); (d) the entry points at
      MEDIUM: the three spec cases through tpufem_torch.pipeline.verify, a
      user MSH2 mesh through the mesh and FEM stages, and the hard case down
      the gather ladder;
-  7. prints the kernels' JSON line, then {"ok": true, "device": {...}}.
+  7. prints the peak device memory of the phase-3 solve, the training phase
+     and the gather solve, the kernels' JSON line, then
+     {"ok": true, "device": {...}}.
 
 Every phase raises on failure; the script then exits nonzero and prints no
 result. Usage: python3 chip_smoke.py   (one card, no arguments)
@@ -300,9 +308,12 @@ def main() -> int:
 
     dev = torch.device("cuda")
     kernels, state = run(dev, DOF100K, BATCH)
+    torch.cuda.reset_peak_memory_stats()
     run_training_path(dev, state["segment"])
+    state["peak_bytes"]["training phase"] = torch.cuda.max_memory_allocated()
     kernels = segment_kernel_entries(state["segment"]) + kernels
     kernels += run_gather_path(dev, DOF100K, state)
+    print(json.dumps({"peak_device_memory_bytes": state["peak_bytes"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -350,10 +361,12 @@ def run(dev, res, batch):
     zero_segment_counters()
     cs.csr_segment_sum.launches = 0
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = solver.solve(p4, pressure=PRESSURE, tol=TOL, maxiter=2000)
     torch.cuda.synchronize()
     solve_wall = time.perf_counter() - t0
+    peak_bytes = {f"{res.key} B={batch} stencil solve": torch.cuda.max_memory_allocated()}
 
     bt = solver.bt
     nodes = out.nodes.cpu().numpy().astype(np.float64)
@@ -455,7 +468,7 @@ def run(dev, res, batch):
                                                       graphs[0].num_nodes)),
                                          (f"{batch}-graph batch", merged))}
 
-    state = {"solver": solver, "p4": p4, "out": out,
+    state = {"solver": solver, "p4": p4, "out": out, "peak_bytes": peak_bytes,
              "stencil_csr_launches": launches["csr_segment_sum"],
              "segment": {"shapes": shapes, "launches": launches}}
     b64, b32 = kb["f64"], kb["f32"]
@@ -679,54 +692,68 @@ def timed_pair(fn, plain):
     return median_ms(fn), median_ms(plain)
 
 
-# kernel D's arithmetic per tet (tet4_force.cu): H = sum_a g_a (x) u_a, 36
-# FMA (72); sigma (24); the 12 forces, a 3-term dot (5) and a scale by vol (1)
-# each (72)
-TET4_FORCE_FLOPS = 168
-
-
-def check_tet4_force(grads, vols, tets, u, lam, mu):
-    """Kernel D against tet4_element_force_plain at the DOF100K mesh's shapes."""
+def check_stiffness_apply(dev, mesh, root_nodes, lam, mu):
+    """Kernel D against stiffness_apply_plain at the DOF100K mesh's shapes:
+    f64 within 1e-12 of the largest plain f64 value, f32 no worse than 2x the
+    plain f32 version's error, the same bits twice (check_apply raises
+    otherwise), masked and unmasked, on the mesh as numbered and with its
+    nodes renumbered by a seeded permutation; exactly 1 launch and 1 device
+    activity per apply; event times of kernel and plain version, device time
+    per launch repeated and with the L2 flushed, and the function's bound
+    (its operands read once, y written once, every tet evaluated once; the
+    plan's bytes and the repeated evaluations are the design's cost and are
+    printed beside it). Returns its report, by "<mesh> <dtype>
+    masked|unmasked"."""
     from tpufem_torch.fem import assembly as asm
-    from tpufem_torch.utils.profiling import device_time
+    from tpufem_torch.profile_gather_operator import (
+        check_apply,
+        operator_inputs,
+        permuted,
+        profile_apply,
+    )
 
-    fe = asm.tet4_element_force(grads, vols, tets, u, lam, mu)
-    ref = asm.tet4_element_force_plain(grads, vols, tets, u, lam, mu)
-    torch.cuda.synchronize()
-    err = (fe - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    require(err <= 1e-12 * scale, f"kernel D f64 disagrees: {err:.3e} vs scale {scale:.3e}")
-    require(torch.equal(fe, asm.tet4_element_force(grads, vols, tets, u, lam, mu)),
-            "kernel D not deterministic")
-    g32, v32, u32 = grads.float(), vols.float(), u.float()
-    e_k = (asm.tet4_element_force(g32, v32, tets, u32, lam, mu).double() - ref).abs().max().item()
-    e_p = (asm.tet4_element_force_plain(g32, v32, tets, u32, lam, mu).double()
-           - ref).abs().max().item()
-    require(e_k <= 2.0 * e_p, f"kernel D f32 error {e_k:.3e} > 2x plain f32 error {e_p:.3e}")
-    ms, plain_ms = timed_pair(lambda: asm.tet4_element_force(grads, vols, tets, u, lam, mu),
-                              lambda: asm.tet4_element_force_plain(grads, vols, tets, u, lam, mu))
-    ms32, plain32 = timed_pair(lambda: asm.tet4_element_force(g32, v32, tets, u32, lam, mu),
-                               lambda: asm.tet4_element_force_plain(g32, v32, tets, u32, lam, mu))
-    bd = bound(nbytes(grads, vols, tets, u, fe), TET4_FORCE_FLOPS * tets.shape[0], torch.float64)
-    bd32 = bound(nbytes(g32, v32, tets, u32, fe.float()), TET4_FORCE_FLOPS * tets.shape[0],
-                 torch.float32)
-    dev_us = device_time(lambda: asm.tet4_element_force(grads, vols, tets, u, lam, mu),
-                         "tet4_force_kernel")["device_us"]
-    dev_us32 = device_time(lambda: asm.tet4_element_force(g32, v32, tets, u32, lam, mu),
-                           "tet4_force_kernel")["device_us"]
-    share, share32 = bd["bound_ms"] * 1e3 / dev_us, bd32["bound_ms"] * 1e3 / dev_us32
-    print(f"[kernel D] tet4_element_force T={tets.shape[0]} N={u.shape[0]}: f64 max|err| "
-          f"{err:.3e} (scale {scale:.3e}, bar 1e-12 rel); f32 err vs f64 {e_k:.3e} (plain f32 "
-          f"{e_p:.3e}, bar 2x); f64 {ms:.4f} ms vs plain {plain_ms:.4f} ms, f32 {ms32:.4f} ms "
-          f"vs plain {plain32:.4f} ms (median of 7); device time per launch (torch.profiler) "
-          f"f64 {dev_us:.2f} us, bound {bd['bound_ms'] * 1e3:.2f} us ({bd['bound_by']}): "
-          f"{share:.1%}; f32 {dev_us32:.2f} us, bound {bd32['bound_ms'] * 1e3:.2f} us: "
-          f"{share32:.1%}; no one-call PyTorch equivalent")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "device_us": dev_us,
-            "share": share,
-            "f32": {"max_abs_err": e_k, "plain_max_abs_err": e_p, "ms": ms32, "plain_ms": plain32,
-                    "device_us": dev_us32, "bound_ms": bd32["bound_ms"], "share": share32},
-            "T": tets.shape[0]}, fe
+    out = {}
+    meshes = {"ordered": (mesh.nodes, mesh.tets, root_nodes),
+              "permuted": permuted(mesh.nodes, mesh.tets, root_nodes)}
+    for label, (nodes, tets, root) in meshes.items():
+        g64, v64, tt, x64, f64, plan = operator_inputs(nodes, tets, root, torch.float64, dev)
+        for masked in (True, False) if label == "ordered" else (True,):
+            ref = asm.stiffness_apply_plain(g64, v64, tt, x64, lam, mu, plan,
+                                            f64 if masked else None)
+            for dt, name in ((torch.float64, "f64"), (torch.float32, "f32")):
+                g, v, x = g64.to(dt), v64.to(dt), x64.to(dt)
+                free = f64.to(dt) if masked else None
+                err, err_plain = check_apply(g, v, tt, x, free, plan, lam, mu, ref)
+                r = profile_apply(g, v, tt, x, free, plan, lam, mu)
+                require(r["launches"] == 1 and r["activities"] == 1,
+                        f"kernel D {label} {name}: {r['launches']} launches and "
+                        f"{r['activities']} device activities per apply, not 1")
+                ms, plain_ms = timed_pair(
+                    lambda: asm.stiffness_apply(g, v, tt, x, lam, mu, plan, free),
+                    lambda: asm.stiffness_apply_plain(g, v, tt, x, lam, mu, plan, free))
+                key = f"{label} {name} {'masked' if masked else 'unmasked'}"
+                out[key] = {"max_abs_err": err, "plain_max_abs_err": err_plain,
+                            "scale": ref.abs().max().item(), "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": r["bound_us"] / 1e3, "overlap": plan.overlap,
+                            "blocks": plan.bnode.numel() - 1, "T": int(tt.shape[0]),
+                            "N": int(x.shape[0]),
+                            **{k: r[k] for k in ("bound_by", "bound_us", "device_us",
+                                                 "device_us_cold", "share", "share_repeated",
+                                                 "launches", "activities", "plan_bytes")}}
+                p = out[key]
+                print(f"[kernel D] stiffness_apply {key} T={p['T']} N={p['N']} ({p['blocks']} "
+                      f"blocks, each tet evaluated {p['overlap']:.3f} times): max|err| {err:.3e} "
+                      f"(plain {err_plain:.3e} in this dtype; scale {p['scale']:.3e}; bars 1e-12 "
+                      f"rel in f64, 2x plain in f32), bitwise repeatable; {p['launches']:.0f} "
+                      f"launch, {p['activities']:.0f} device activity per apply; single call "
+                      f"{ms:.4f} ms vs plain {plain_ms:.4f} ms (median of 7); device time per "
+                      f"launch (torch.profiler) {p['device_us']:.2f} us repeated, "
+                      f"{p['device_us_cold']:.2f} us with the L2 flushed; bound "
+                      f"{p['bound_us']:.2f} us ({p['bound_by']}, the operands alone): "
+                      f"{p['share']:.1%} flushed, {p['share_repeated']:.1%} repeated; the plan "
+                      f"adds {p['plan_bytes'] / 1e6:.2f} MB per launch; no one-call PyTorch "
+                      f"equivalent")
+    return out
 
 
 def check_csr_sum(label, vals64, plan):
@@ -764,16 +791,19 @@ def check_csr_sum(label, vals64, plan):
                          "csr_segment_sum_kernel")["device_us"]
     dev_us32 = device_time(lambda: cs.csr_segment_sum(v32, plan),
                            "csr_segment_sum_kernel")["device_us"]
+    # every device activity of the library call (it adds into acc: no fill is counted)
+    library_us = device_time(lambda: acc.index_add_(0, ids, vals64), "")["all_device_us"]
     share, share32 = bd["bound_ms"] * 1e3 / dev_us, bd32["bound_ms"] * 1e3 / dev_us32
     print(f"[kernel E] csr_segment_sum {label}: R={R} C={C} N={plan.num_segments}: f64 max|err| "
           f"{err:.3e} (scale {scale:.3e}, bar 1e-12 rel), bitwise deterministic; f32 err vs f64 "
           f"{e_k:.3e} (plain f32 {e_p:.3e}, bar 2x); f64 {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
           f"index_add_ {library_ms:.4f} ms, f32 {ms32:.4f} ms vs plain {plain32:.4f} ms (median "
-          f"of 7); device time per launch (torch.profiler) f64 {dev_us:.2f} us, bound "
+          f"of 7); device time per launch (torch.profiler) f64 {dev_us:.2f} us (index_add_ "
+          f"{library_us:.2f} us), bound "
           f"{bd['bound_ms'] * 1e3:.2f} us ({bd['bound_by']}): {share:.1%}; f32 {dev_us32:.2f} us, "
           f"bound {bd32['bound_ms'] * 1e3:.2f} us: {share32:.1%}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bd,
-            "device_us": dev_us, "share": share, "R": R, "C": C,
+            "device_us": dev_us, "library_device_us": library_us, "share": share, "R": R, "C": C,
             "f32": {"max_abs_err": e_k, "plain_max_abs_err": e_p, "ms": ms32, "plain_ms": plain32,
                     "device_us": dev_us32, "bound_ms": bd32["bound_ms"], "share": share32}}
 
@@ -826,8 +856,8 @@ def attempts_line(rep):
 
 def run_gather_path(dev, res, state):
     """Phase 6: kernels D and E at DOF100K, the stencil solve's repeatability,
-    the DOF100K gather solve and FEM stage, and the MEDIUM entry points.
-    Returns kernels D's and E's report entries."""
+    the DOF100K gather solve (twice) and FEM stage, and the MEDIUM entry
+    points. Returns kernels D's and E's report entries."""
     from tpufem_torch.fem import assembly as asm
     from tpufem_torch.fem.driver import WingSolveConfig, solve_wing_case
     from tpufem_torch.fem.elements import tet4_setup
@@ -853,7 +883,8 @@ def run_gather_path(dev, res, state):
     grads, vols = tet4_setup(torch.as_tensor(mesh.nodes, device=dev), tets)
     gen = torch.Generator(device=dev).manual_seed(4)
     u = torch.randn((mesh.num_nodes, 3), generator=gen, dtype=torch.float64, device=dev)
-    kd, fe = check_tet4_force(grads, vols, tets, u, lam, mu)
+    kd = check_stiffness_apply(dev, mesh, bs.nroot_nodes, lam, mu)
+    fe = asm.tet4_element_force_plain(grads, vols, tets, u, lam, mu)
     upper = mesh.surf_faces[bs.surf_upper_faces]
     inc = cs.csr_plan(mesh.tets, mesh.num_nodes, dev)
     ke = {"incidence C=3": check_csr_sum("element forces (incidence) C=3", fe, inc),
@@ -875,17 +906,22 @@ def run_gather_path(dev, res, state):
           f"vm bitwise equal")
 
     # ---- 6c. full width through the gather path, launch counters zeroed
-    asm.tet4_element_force.launches = 0
+    asm.stiffness_apply.launches = 0
     cs.csr_segment_sum.launches = 0
-    # one refinement step: uninterrupted f64 CG drifts from its TRUE residual
-    # at this conditioning (a recurred 1e-6 against a TRUE 1.08e-6 on an
-    # NVIDIA H100 80GB HBM3, 700 W); the correction solve certifies the TRUE
-    # residual it reports
-    cfg64 = WingSolveConfig(pressure=PRESSURE, dtype=torch.float64, tol=TOL, refine_steps=1)
+    # the ladder's float64 rung: it reports the TRUE residual and, where the
+    # uninterrupted f64 CG drifted above tol (a recurred 1e-6 against a TRUE
+    # 1.08e-6 on an NVIDIA H100 80GB HBM3, 700 W), takes one refinement step
+    cfg64 = WingSolveConfig(pressure=PRESSURE, dtype=torch.float64, tol=TOL)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sol = solve_wing_case(mesh, bs, cfg64, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    state["peak_bytes"]["DOF100K gather f64 solve"] = torch.cuda.max_memory_allocated()
+    again = solve_wing_case(mesh, bs, cfg64, device=dev)
+    require(again.iters == sol.iters and np.array_equal(again.u, sol.u)
+            and np.array_equal(again.vm, sol.vm),
+            f"gather f64 solve repeated: {again.iters} vs {sol.iters} iters or other bits")
     t0 = time.perf_counter()
     solve_wing_case(mesh, bs, dataclasses.replace(cfg64, maxiter=0), device=dev)
     torch.cuda.synchronize()
@@ -896,7 +932,8 @@ def run_gather_path(dev, res, state):
     d_st = float(np.linalg.norm(sol.u - u_st) / np.linalg.norm(u_st))
     ms_iter = (wall - setup_s) / max(sol.iters, 1) * 1e3
     print(f"[gather] DOF100K wing 0 ({3 * mesh.num_nodes} DOF, T={mesh.num_tets}) f64, line + RBM "
-          f"PCG + 1 refinement step, tol {TOL}: {sol.iters} iters, reported TRUE rel "
+          f"PCG (the float64 rung: a refinement step where the TRUE residual asks for it), tol "
+          f"{TOL}: {sol.iters} iters, solved twice with bitwise-equal u and vm, reported TRUE rel "
           f"{sol.rel_residual:.3e}, wall {wall:.3f} s (setup + recovery {setup_s:.3f} s, the "
           f"same solve at maxiter=0) = {ms_iter:.4f} ms per iteration; TRUE f64 rel recomputed "
           f"on the CPU {rel_cpu:.3e} (bar {TOL}); |u - u_stencil| / |u_stencil| {d_st:.3e} "
@@ -921,10 +958,10 @@ def run_gather_path(dev, res, state):
         require(rep.status == "success", f"gather FEM stage: {rep.failure_reason}")
         for name in ("wing_result.glb", "wing_result_arrows.glb"):
             require_glb(paths.fem_case("g1") / name)
-        launches = {"tet4_element_force": asm.tet4_element_force.launches,
+        launches = {"stiffness_apply": asm.stiffness_apply.launches,
                     "csr_segment_sum": cs.csr_segment_sum.launches}
         print(f"[gather] kernel launches (6c): {launches}")
-        require(launches["tet4_element_force"] > 0, "kernel D was not launched on the gather path")
+        require(launches["stiffness_apply"] > 0, "kernel D was not launched on the gather path")
         require(launches["csr_segment_sum"] > 0, "kernel E was not launched on the gather path")
 
         # ---- 6d. entry points at MEDIUM
@@ -971,15 +1008,18 @@ def run_gather_path(dev, res, state):
         require("solve_ladder" in rep.extra or rep.extra["solver"]["converged"],
                 "hard case: the ladder's attempts were not recorded")
 
+    d64 = kd["ordered f64 masked"]
     return [
-        {"name": "tet4_element_force", "route": "cuda", "source": "tpufem_torch/csrc/tet4_force.cu",
-         "replaces": "tpufem/fem/assembly.py:60", "launches": launches["tet4_element_force"],
-         "max_abs_err": kd["max_abs_err"], "ms": kd["ms"], "plain_ms": kd["plain_ms"],
-         "bound_ms": kd["bound_ms"], "bound_by": kd["bound_by"], "library_ms": None,
-         "device_us": kd["device_us"], "share": kd["share"], "f32": kd["f32"], "T": kd["T"]},
+        {"name": "stiffness_apply", "route": "cuda", "source": "tpufem_torch/csrc/tet4_force.cu",
+         "replaces": "tpufem/fem/assembly.py:60-97", "launches": launches["stiffness_apply"],
+         **{k: d64[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None,
+         **{k: d64[k] for k in ("device_us", "device_us_cold", "share", "share_repeated",
+                                "activities", "plan_bytes", "overlap", "blocks", "T", "N")},
+         "shapes": kd},
         {"name": "csr_segment_sum", "route": "cuda",
          "source": "tpufem_torch/csrc/csr_segment_sum.cu",
-         "replaces": "tpufem/fem/assembly.py:77", "launches": launches["csr_segment_sum"],
+         "replaces": "tpufem/fem/assembly.py:110", "launches": launches["csr_segment_sum"],
          "stencil_launches": state["stencil_csr_launches"],
          "max_abs_err": ke["incidence C=3"]["max_abs_err"], "ms": ke["incidence C=3"]["ms"],
          "plain_ms": ke["incidence C=3"]["plain_ms"], "bound_ms": ke["incidence C=3"]["bound_ms"],

@@ -19,8 +19,10 @@ from tpufem_torch.fem.stencil_mg import WingStencilT
 from tpufem_torch.mesher import COARSE, MEDIUM, WingMeshResolution, structured_wing_mesh
 from tpufem_torch.ops import csr_segment_sum as tcs
 from tpufem_torch.ops import gather_scatter as tgs
+from tpufem_torch.profile_gather_operator import operator_inputs, permuted
 from tpufem_torch.profile_solve import seeded_batch
 from tpufem_torch.sets import build_boundary_sets
+from tpufem_torch.utils.profiling import device_time
 
 pytestmark = pytest.mark.gpu
 LAM, MU = lame_params(Material())
@@ -248,13 +250,10 @@ def test_fused_mean_is_one_device_kernel_each_way(cuda):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        tgs.segment_mean_aggregate(h, plan).backward(g)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels = [n for n in names if "row_sum_kernel" in n]
+    # device_time takes an empty profiler window again
+    r = device_time(lambda: tgs.segment_mean_aggregate(h, plan).backward(g), "row_sum_kernel")
     # beside the two launches autograd may accumulate h.grad (one add)
-    assert len(kernels) == 2 and len(names) <= 3, names
+    assert r["launches"] == 2 and r["activities"] <= 3, r
     assert torch.cuda.max_memory_allocated() - base < E * C * 4
 
 
@@ -347,13 +346,8 @@ def test_strain_apply_is_one_device_kernel(cuda, dtype):
     res = STRAIN_GRIDS["medium-sharp-te"]
     geo, u, free = _strain_inputs(res, 8, cuda)
     geo, u, free = tuple(t.to(dtype) for t in geo), u.to(dtype), free.to(dtype)
-    tst.strain_apply(res, geo, u, free, LAM, MU)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        tst.strain_apply(res, geo, u, free, LAM, MU)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(names) == 1 and "strain_apply" in names[0], names
+    r = device_time(lambda: tst.strain_apply(res, geo, u, free, LAM, MU), "strain_apply")
+    assert r["launches"] == 1 and r["activities"] == 1, r
 
 
 @pytest.mark.parametrize("bad", ["shape", "dtype", "device"])
@@ -380,8 +374,12 @@ def test_solve_on_cuda_matches_cpu(cuda, B):
     assert (u_c - u_h).abs().max().item() <= 1e-7 * u_h.abs().max().item()
 
 
+def _tet_mesh():
+    return structured_wing_mesh(1.6, 0.30, 25.0, 0.07, WingMeshResolution(24, 16, 3, 0.006, "le"))
+
+
 def _tet_inputs(dev, dtype):
-    m = structured_wing_mesh(1.6, 0.30, 25.0, 0.07, WingMeshResolution(24, 16, 3, 0.006, "le"))
+    m = _tet_mesh()
     nodes = torch.as_tensor(m.nodes, dtype=torch.float64, device=dev)
     tets = torch.as_tensor(m.tets, device=dev)
     grads, vols = tet4_setup(nodes, tets)
@@ -389,19 +387,159 @@ def _tet_inputs(dev, dtype):
     return m, grads.to(dtype), vols.to(dtype), tets, u.to(dtype)
 
 
-def test_tet4_force_kernel_matches_plain(cuda):
-    m, grads, vols, tets, u = _tet_inputs(cuda, torch.float64)
-    before = tas.tet4_element_force.launches
-    fe = tas.tet4_element_force(grads, vols, tets, u, LAM, MU)
-    ref = tas.tet4_element_force_plain(grads, vols, tets, u, LAM, MU)
-    assert tas.tet4_element_force.launches == before + 1
-    assert (fe - ref).abs().max().item() <= 1e-12 * ref.abs().max().item()
-    assert torch.equal(fe, tas.tet4_element_force(grads, vols, tets, u, LAM, MU))
-    # f32: no worse than 2x the plain f32 version's error against f64
-    g32, v32, u32 = grads.float(), vols.float(), u.float()
-    e_k = (tas.tet4_element_force(g32, v32, tets, u32, LAM, MU).double() - ref).abs().max().item()
-    e_p = (tas.tet4_element_force_plain(g32, v32, tets, u32, LAM, MU).double() - ref).abs().max().item()
-    assert e_k <= 2.0 * e_p, (e_k, e_p)
+MESH_CASES = ["structured", "permuted", "untouched-node", "small-blocks"]
+
+
+def _operator_case(name, dev, monkeypatch):
+    """kernel D's f64 inputs (grads, vols, tets, x, free, plan) on the 24x16x3
+    wing: as meshed; renumbered by a seeded permutation; with one more node,
+    which no tet touches, in the middle of the numbering; as meshed, cut into
+    blocks of at most 64 rows (the nodes of valence above that get a block
+    each)."""
+    m = _tet_mesh()
+    nodes, tets, root = m.nodes, m.tets, build_boundary_sets(m).nroot_nodes
+    if name == "permuted":
+        nodes, tets, root = permuted(nodes, tets, root, seed=1)
+    if name == "untouched-node":
+        k = len(nodes) // 2
+        nodes = np.insert(nodes, k, [9.0, 9.0, 9.0], axis=0)
+        tets, root = tets + (tets >= k), root + (root >= k)
+    if name == "small-blocks":
+        monkeypatch.setattr(tas, "SLOTS", 64)
+    return operator_inputs(nodes, tets, root, torch.float64, dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+@pytest.mark.parametrize("case", MESH_CASES)
+def test_tet4_force_kernel_matches_plain(cuda, case, masked, dtype, monkeypatch):
+    """Kernel D, the whole operator apply in one launch, against the plain
+    composition; the same bits twice."""
+    g64, v64, tets, x64, f64, plan = _operator_case(case, cuda, monkeypatch)
+    ref = tas.stiffness_apply_plain(g64, v64, tets, x64, LAM, MU, plan, f64 if masked else None)
+    g, v, x = g64.to(dtype), v64.to(dtype), x64.to(dtype)
+    free = f64.to(dtype) if masked else None
+    before = tas.stiffness_apply.launches
+    y = tas.stiffness_apply(g, v, tets, x, LAM, MU, plan, free)
+    torch.cuda.synchronize()
+    assert tas.stiffness_apply.launches == before + 1
+    assert torch.equal(y, tas.stiffness_apply(g, v, tets, x, LAM, MU, plan, free))  # no atomics
+    err = (y.double() - ref).abs().max().item()
+    if dtype == torch.float64:
+        assert err <= 1e-12 * ref.abs().max().item()
+    else:
+        # no worse than 2x the plain f32 version's error against f64
+        p32 = tas.stiffness_apply_plain(g, v, tets, x, LAM, MU, plan, free)
+        assert err <= 2.0 * (p32.double() - ref).abs().max().item()
+    if masked:  # the identity on the constrained rows, bit for bit
+        fixed = free == 0
+        assert fixed.any() and torch.equal(y[fixed], x[fixed])
+    if case == "untouched-node":
+        untouched = (plan.starts[1:] == plan.starts[:-1]).nonzero().reshape(-1)
+        assert untouched.numel() == 1 and (y[untouched] == 0).all()
+    if case == "small-blocks":
+        assert plan.slots == 64 and plan.bnode.numel() > 400
+    if masked and dtype == torch.float64:  # the flat operator and elastic_force are the kernel
+        A = tas.stiffness_operator(g, v, tets, LAM, MU, plan, free.reshape(-1))
+        assert torch.equal(A(x.reshape(-1)), y.reshape(-1))
+    if not masked:
+        assert torch.equal(tas.elastic_force(g, v, tets, x, LAM, MU, plan), y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+def test_stiffness_apply_is_one_device_kernel(cuda, masked, dtype, monkeypatch):
+    """One gather operator apply on the card, mask and Dirichlet identity
+    included, is exactly one device activity: kernel D."""
+    g, v, tets, x, free, plan = (t.to(dtype) if torch.is_tensor(t) and t.is_floating_point() else t
+                                 for t in _operator_case("structured", cuda, monkeypatch))
+    free = free if masked else None
+    r = device_time(lambda: tas.stiffness_apply(g, v, tets, x, LAM, MU, plan, free),
+                    "stiffness_apply")
+    assert r["launches"] == 1 and r["activities"] == 1, r
+
+
+def test_stiffness_apply_at_the_valence_cap(cuda):
+    """A node with as many incident tets as one block's shared memory holds
+    (a fan of SLOT_LIMIT tets round node 0) against the plain composition, in
+    both dtypes; one tet more and the plan is refused."""
+    n = tas.SLOT_LIMIT
+    fan = np.array([[0, 3 * i + 1, 3 * i + 2, 3 * i + 3] for i in range(n + 1)], np.int32)
+    nodes = np.random.default_rng(3).normal(size=(3 * n + 4, 3))
+    with pytest.raises(ValueError, match="incident tets"):
+        tas.build_incidence(fan, len(nodes), cuda)
+    g64, v64, tets, x64, f64, plan = operator_inputs(nodes[:-3], fan[:-1], np.array([1, 2]),
+                                                     torch.float64, cuda)
+    assert plan.slots == n and int(plan.starts[1]) == n
+    ref = tas.stiffness_apply_plain(g64, v64, tets, x64, LAM, MU, plan, f64)
+    y = tas.stiffness_apply(g64, v64, tets, x64, LAM, MU, plan, f64)
+    assert (y - ref).abs().max().item() <= 1e-12 * ref.abs().max().item()
+    g, v, x, free = g64.float(), v64.float(), x64.float(), f64.float()
+    y32 = tas.stiffness_apply(g, v, tets, x, LAM, MU, plan, free)
+    p32 = tas.stiffness_apply_plain(g, v, tets, x, LAM, MU, plan, free)
+    assert (y32.double() - ref).abs().max().item() <= 2.0 * (p32.double() - ref).abs().max().item()
+
+
+def test_stiffness_apply_rejects_bad_input(cuda, monkeypatch):
+    g, v, tets, x, free, plan = _operator_case("structured", cuda, monkeypatch)
+    ok = (g, v, tets, x, LAM, MU, plan, free)
+    tas.stiffness_apply(*ok)
+
+    def call(**kw):
+        names = ("grads", "vols", "tets", "x", "lam", "mu", "plan", "free")
+        return tas.stiffness_apply(*[kw.get(n, a) for n, a in zip(names, ok)])
+
+    with pytest.raises(TypeError):
+        call(x=x.float())
+    with pytest.raises(TypeError):
+        call(free=free.float())
+    with pytest.raises(TypeError):
+        call(x=x.half(), grads=g.half(), vols=v.half(), free=free.half())
+    with pytest.raises(TypeError):
+        call(tets=tets.long())
+    with pytest.raises(ValueError):
+        call(x=x.reshape(-1))
+    with pytest.raises(ValueError):
+        call(free=free[:-1])
+    with pytest.raises(ValueError):
+        call(grads=g[:-1])
+    with pytest.raises(ValueError):  # a plan of another mesh
+        call(plan=tas.build_incidence(tets[:-1].cpu(), x.shape[0], cuda))
+    with pytest.raises(ValueError):  # the plan on another device
+        call(plan=tas.build_incidence(tets.cpu(), x.shape[0], "cpu"))
+    with pytest.raises(ValueError):
+        call(vols=v.cpu())
+    with pytest.raises(ValueError):  # not contiguous: never copied silently
+        call(x=torch.stack([x, x], dim=1)[:, 0])
+    with pytest.raises(ValueError):
+        call(free=free.T.contiguous().T)
+    shifted = torch.empty(g.numel() + 1, dtype=g.dtype, device=cuda)[1:].view(g.shape).copy_(g)
+    with pytest.raises(ValueError, match="aligned"):
+        call(grads=shifted)
+
+
+@pytest.mark.parametrize("kernel", ["B", "D", "E"])
+def test_hand_kernels_refuse_requires_grad(cuda, kernel, monkeypatch):
+    """Kernels B, D and E have no backward: a CUDA tensor that requires_grad
+    raises instead of coming back detached; under no_grad it runs."""
+    if kernel == "B":
+        res = STRAIN_GRIDS["12x10x3-le-weld"]
+        geo, u, free = _strain_inputs(res, 1, cuda)
+        u.requires_grad_()
+        run = lambda: tst.strain_apply(res, geo, u, free, LAM, MU)  # noqa: E731
+    elif kernel == "D":
+        g, v, tets, x, free, plan = _operator_case("structured", cuda, monkeypatch)
+        x.requires_grad_()
+        run = lambda: tas.stiffness_apply(g, v, tets, x, LAM, MU, plan, free)  # noqa: E731
+    else:
+        m, *_ = _tet_inputs(cuda, torch.float64)
+        plan = tcs.csr_plan(m.tets, m.num_nodes, cuda)
+        vals = torch.ones((m.tets.size, 3), dtype=torch.float64, device=cuda, requires_grad=True)
+        run = lambda: tcs.csr_segment_sum(vals, plan)  # noqa: E731
+    with pytest.raises(ValueError, match="no backward"):
+        run()
+    with torch.no_grad():
+        assert not run().requires_grad
 
 
 @pytest.mark.parametrize("C", [1, 3, 6, 24])
@@ -439,11 +577,19 @@ def test_stencil_solves_are_bitwise_repeatable(cuda):
 def test_gather_solve_on_cuda_matches_cpu(cuda):
     m = structured_wing_mesh(1.2, 0.35, 0.0, 0.10, COARSE)
     bs = build_boundary_sets(m)
-    cfg = WingSolveConfig(pressure=100.0, dtype=torch.float64, tol=1e-10, maxiter=50000)
-    d0, e0 = tas.tet4_element_force.launches, tcs.csr_segment_sum.launches
-    sc = solve_wing_case(m, bs, cfg, device=cuda)
-    assert tas.tet4_element_force.launches > d0 and tcs.csr_segment_sum.launches > e0
-    sh = solve_wing_case(m, bs, cfg, device="cpu")
-    assert sc.converged and sh.converged
-    assert np.linalg.norm(sc.u - sh.u) <= 1e-7 * np.linalg.norm(sh.u)
-    assert np.abs(sc.vm - sh.vm).max() <= 1e-7 * np.abs(sh.vm).max()
+    # the float64 rung certifies the TRUE residual, whose f64 floor here is ~1.3e-10: at
+    # tol 1e-9 both devices converge; at 1e-10 they may not, and agree all the same
+    for tol in (1e-9, 1e-10):
+        cfg = WingSolveConfig(pressure=100.0, dtype=torch.float64, tol=tol, maxiter=50000)
+        d0, e0 = tas.stiffness_apply.launches, tcs.csr_segment_sum.launches
+        sc = solve_wing_case(m, bs, cfg, device=cuda)
+        assert tas.stiffness_apply.launches > d0 and tcs.csr_segment_sum.launches > e0
+        again = solve_wing_case(m, bs, cfg, device=cuda)  # kernel D's fixed order: the same bits
+        assert again.iters == sc.iters and np.array_equal(again.u, sc.u)
+        assert np.array_equal(again.vm, sc.vm)
+        sh = solve_wing_case(m, bs, cfg, device="cpu")
+        for sol in (sc, sh):
+            assert sol.converged == (sol.rel_residual <= tol)
+            assert sol.converged or tol == 1e-10
+        assert np.linalg.norm(sc.u - sh.u) <= 1e-7 * np.linalg.norm(sh.u)
+        assert np.abs(sc.vm - sh.vm).max() <= 1e-7 * np.abs(sh.vm).max()

@@ -241,7 +241,7 @@ def _params(root: Path, cid: str) -> WingParams:
 
 def test_fem_stage_without_resolution_takes_gather_path(roots, tmp_path):
     """A mesh without a recorded structured resolution skips the stencil
-    engine: the gather path ("primary": kernels D and E on the card) solves
+    engine: the gather path ("primary": kernel D on the card) solves
     it, with the thickness-line preconditioner from mesh.npz."""
     port, _ = roots
     root = _copy_root(port, tmp_path / "g")

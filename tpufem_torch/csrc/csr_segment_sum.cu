@@ -29,7 +29,7 @@ namespace {
 template <typename T>
 __global__ void csr_segment_sum_kernel(const T* __restrict__ vals,
                                        const int32_t* __restrict__ order,
-                                       const int64_t* __restrict__ starts,
+                                       const int32_t* __restrict__ starts,
                                        T* __restrict__ out, int64_t N, int64_t C) {
   const int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (idx >= N * C) return;
@@ -52,14 +52,14 @@ int launch(const void* vals, const void* order, const void* starts, void* out, l
     csr_segment_sum_kernel<T><<<static_cast<unsigned int>(blocks), threads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(vals), static_cast<const int32_t*>(order),
-        static_cast<const int64_t*>(starts), static_cast<T*>(out), N, C);
+        static_cast<const int32_t*>(starts), static_cast<T*>(out), N, C);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// vals (R, C), order (R,) int32, starts (N+1,) int64, out (N, C); all
+// vals (R, C), order (R,) int32, starts (N+1,) int32, out (N, C); all
 // contiguous on the device, vals and out of one dtype. Returns
 // cudaGetLastError() after the launch.
 extern "C" int tpufem_csr_segment_sum_f32(const void* vals, const void* order,

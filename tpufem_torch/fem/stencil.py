@@ -24,7 +24,7 @@ import torch
 
 from tpufem_torch.geometry import naca00xx_half_thickness, stations
 from tpufem_torch.mesher import _HEX_CORNERS, _KUHN_TETS, WingMeshResolution, wing_topology
-from tpufem_torch.ops.kernels import check, load_kernels
+from tpufem_torch.ops.kernels import check, load_kernels, wants_grad
 
 # the 15 lattice offsets (di, dj, dk) the Kuhn tets couple a node to
 OFFSETS = sorted(
@@ -221,7 +221,8 @@ def check_strain_apply_inputs(res: WingMeshResolution, geo, u, free) -> None:
     """Raise unless kernel B takes these inputs as they are: u (3,B,NI,NK,NJ)
     on res's grid, g (6,4,3,B,nc,nt,ns), vol (6,B,nc,nt,ns) and the root mask
     free (1,1,1,1,NJ), all contiguous, of one float dtype (f32 or f64) on one
-    device, with every index below 2^31 (the kernel indexes in 32 bits)."""
+    device, with every index below 2^31 (the kernel indexes in 32 bits), none
+    of them wanting a gradient (the kernel has no backward)."""
     g, vol = geo
     if u.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kernel B takes f32 or f64, got {u.dtype}")
@@ -240,6 +241,9 @@ def check_strain_apply_inputs(res: WingMeshResolution, geo, u, free) -> None:
         raise ValueError("kernel B takes contiguous u, g, vol and free")
     if max(g.numel(), u.numel()) >= 2**31:
         raise ValueError("kernel B indexes in 32 bits: the arrays are too large")
+    if any(wants_grad(t) for t in (u, g, vol, free)):
+        raise ValueError("kernel B has no backward: a CUDA input requires_grad (the plain "
+                         "version on the CPU differentiates)")
 
 
 def strain_apply(res: WingMeshResolution, geo, u, free, lam: float, mu: float):

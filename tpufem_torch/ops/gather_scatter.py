@@ -36,7 +36,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from tpufem_torch.ops.kernels import check, load_kernels
+from tpufem_torch.ops.kernels import check, load_kernels, wants_grad
 
 _MAX_ELEMENTS = 2**31  # the kernels index with 32 bits
 
@@ -66,10 +66,6 @@ def _check_vector(name: str, what: str, v: torch.Tensor, dtype, like: torch.Tens
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _wants_grad(t: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and t.requires_grad
 
 
 # ------------------------------------------------------------ row pointers
@@ -191,7 +187,7 @@ def sorted_segment_sum(msgs: torch.Tensor, seg: torch.Tensor, num_segments: int,
     A CPU tensor takes the plain versions; a CUDA tensor launches kernel A
     (forward) and kernel C (backward), or raises.
     """
-    if not _wants_grad(msgs):  # spare the host the autograd Function's bookkeeping
+    if not wants_grad(msgs):  # spare the host the autograd Function's bookkeeping
         return _sorted_segment_sum_fwd(msgs, seg, num_segments, rowptr)
     return SortedSegmentSum.apply(msgs, seg, num_segments, rowptr)
 
@@ -386,7 +382,7 @@ def segment_mean_aggregate(h, plan: AggregationPlan):
     if plan.w.requires_grad:
         raise ValueError("segment_mean_aggregate gives no gradient to edge_mask; use "
                          "gather_mean_aggregate")
-    if not _wants_grad(h):
+    if not wants_grad(h):
         return gather_row_sum(h, plan.src, plan.w, plan.rowptr, normalize=True)[0]
     return FusedGatherMean.apply(h, plan)
 
@@ -399,7 +395,7 @@ def gather_mean_aggregate(h, plan: AggregationPlan):
     _check_plan(h, plan)
     num_nodes = plan.num_nodes
     w = plan.w[:, None]
-    rows = RowGather.apply(h, plan) if _wants_grad(h) else segment_gather(h, plan.src, num_nodes)
+    rows = RowGather.apply(h, plan) if wants_grad(h) else segment_gather(h, plan.src, num_nodes)
     msgs = rows * w
     sums = sorted_segment_sum(msgs, plan.seg, num_nodes, plan.rowptr)
     deg = sorted_segment_sum(w.contiguous(), plan.seg, num_nodes, plan.rowptr)

@@ -24,6 +24,8 @@ from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = [
@@ -49,11 +51,12 @@ _SIGNATURES = {
                                 ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_double, _P],
     "tpufem_strain_apply_f64": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_double, _P],
-    # (grads, vols, tets, u, fe, T, lam, mu, stream)
-    "tpufem_tet4_force_f32": [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_double,
-                              ctypes.c_double, _P],
-    "tpufem_tet4_force_f64": [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_double,
-                              ctypes.c_double, _P],
+    # (grads, vols, tets, pos, btet, bt_start, bnode, starts, x, free or null, y, n_blocks,
+    #  slots, lam, mu, stream)
+    "tpufem_stiffness_apply_f32": [_P] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                                               ctypes.c_double, _P],
+    "tpufem_stiffness_apply_f64": [_P] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                                               ctypes.c_double, _P],
     # (vals, order, starts, out, N, C, stream)
     "tpufem_csr_segment_sum_f32": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
     "tpufem_csr_segment_sum_f64": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
@@ -115,6 +118,13 @@ def load_kernels() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def wants_grad(t: torch.Tensor) -> bool:
+    """True where autograd would record an op on t: a ctypes launch has no
+    grad_fn, so a wrapper without a backward must raise there instead of
+    returning a detached result."""
+    return torch.is_grad_enabled() and t.requires_grad
 
 
 def check(status: int, name: str) -> None:

@@ -11,7 +11,7 @@ Artifacts in data/raw/fem/{case_id}/:
 The solve goes down tpufem's ladder, every rung on `device`: "stencil" (the
 port's WingStencilT at B=1, f64-outer MG-PCG with kernel B, for structured
 meshes when engine is auto or stencil), then the gather path
-(``solve_wing_case``: kernels D and E in every CG iteration) as "primary"
+(``solve_wing_case``: kernel D, one launch per CG iteration) as "primary"
 (the config's dtype, line + RBM or Jacobi PCG), "refined" (f32 CG with f64
 residual refinement) and "float64". A rung that does not converge, or whose
 solution is not finite, hands over to the next: a numerical recovery, not a

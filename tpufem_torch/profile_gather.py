@@ -1,13 +1,15 @@
 """Where the time of a gather-path CG iteration goes, on one CUDA card.
 
 Solves the first wing of chip_smoke.py's seeded batch on the DOF100K mesh
-through solve_wing_case (kernels D and E in every iteration) with a fixed
-number of CG iterations (tol 0), in the two configurations the FEM stage
-runs: f32 with the thickness-line preconditioner alone (the stage's
-"primary" rung on a mesh.npz, which keeps no span-station count) and f64
-with line + RBM (its "float64" rung on a structured mesh). Each runs once
-unprofiled for the wall time, then once under torch.profiler; prints device
-busy time, device activities per iteration and device time by op; the full
+through solve_wing_case (kernel D once per iteration: one launch per
+operator apply) with a fixed number of CG iterations (tol 0), in the two
+configurations the FEM stage runs: f32 with the thickness-line
+preconditioner alone (the stage's "primary" rung on a mesh.npz, which keeps
+no span-station count) and f64 with line + RBM (its "float64" rung on a
+structured mesh). Each runs once unprofiled for the wall time, then once
+under torch.profiler; prints device busy time, device activities per
+iteration, the launches and device time per launch of kernels D
+(stiffness_apply) and E (csr_segment_sum), and device time by op; the full
 tables go to --out. Last, the cost of pcg's host sync per iteration (its
 stopping test): the f32 line system through pcg and through pcg_fixed, which
 runs the same iterations without reading anything back.
@@ -69,6 +71,12 @@ def main(argv=None) -> int:
         print(f"[{label}] profiled: device busy {busy_s:.3f} s in {len(dev_events)} device "
               f"activities ({len(dev_events) / sol.iters:.0f} per iteration incl. setup); "
               f"{busy_s / walls['solve']:.1%} of the unprofiled wall")
+        for kernel, name in (("D", "stiffness_apply"), ("E", "csr_segment_sum")):
+            us = [e.time_range.elapsed_us() for e in dev_events if name in e.name]
+            if us:
+                print(f"[{label}] kernel {kernel} ({name}): {len(us)} launches, "
+                      f"{sum(us) / len(us):.2f} us each, {sum(us) / 1e6 / busy_s:.1%} of the "
+                      f"device busy time")
         table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=30)
         tables.append(f"== {label}, {sol.iters} iterations ==\n{table}")
         print("\n".join(table.splitlines()[:20]))

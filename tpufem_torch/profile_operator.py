@@ -4,13 +4,14 @@ launch and device activities per operator apply, against the byte bound.
 At every V-cycle level of DOF100K that applies the operator (64x80x6,
 32x40x3, 16x20x3, 8x10x3) and at MEDIUM (32x24x4, sharp TE), in f64 and f32,
 on chip_smoke.py's seeded batch of 8: each measurement is a short
-torch.profiler window of 20 applies after a warm-up. It reads the kernel's own device
-time (the rows whose name holds "strain_apply") and counts every device
-activity in the window, so an operator that wraps its kernel in other launches
-shows them. The bound is the larger of the bytes each apply must move (g, vol,
-u and free read once, y written once) over the card's memory rate and its
-arithmetic (FLOPS_PER_TET per Kuhn tet) over the card's rate outside the
-tensor cores (the rates are in tpufem_torch/device.py).
+torch.profiler window of 20 applies after a warm-up
+(utils/profiling.py::device_time). It reads the kernel's own device time (the
+rows whose name holds "strain_apply") and counts every device activity in the
+window, so an operator that wraps its kernel in other launches shows them.
+The bound is the larger of the bytes each apply must move (g, vol, u and free
+read once, y written once) over the card's memory rate and its arithmetic
+(FLOPS_PER_TET per Kuhn tet) over the card's rate outside the tensor cores
+(the rates are in tpufem_torch/device.py).
 
 Usage: python -m tpufem_torch.profile_operator [--out PATH]
 """
@@ -22,7 +23,6 @@ import json
 import sys
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from tpufem_torch.device import HBM_BYTES_PER_S, PEAK_FLOPS
 from tpufem_torch.fem import stencil as st
@@ -30,9 +30,9 @@ from tpufem_torch.fem.material import Material, lame_params
 from tpufem_torch.fem.stencil_mg import hierarchy_resolutions
 from tpufem_torch.mesher import DOF100K, MEDIUM
 from tpufem_torch.profile_solve import seeded_batch
+from tpufem_torch.utils.profiling import device_time
 
 BATCH = 8  # the seeded batch chip_smoke.py and profile_solve solve
-REPS = 20  # applies per profiler window
 # per tet: H = sum_a g_a (x) u_a (36 FMA), sigma * vol (~36), 4 corner forces
 # sigma . g_a (60)
 FLOPS_PER_TET = 170
@@ -63,23 +63,12 @@ def apply_bound(geo, u, free):
 
 def profile_apply(res, geo, u, free, lam, mu):
     """Device us per kernel-B launch and device activities per apply, from
-    one torch.profiler window of REPS applies (after one warm-up)."""
-    st.strain_apply(res, geo, u, free, lam, mu)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            st.strain_apply(res, geo, u, free, lam, mu)
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    kern = [e for e in dev if "strain_apply" in e.name]
-    if not kern:
-        raise RuntimeError("the profiler saw no strain_apply kernel: no device trace")
+    one torch.profiler window of 20 applies (after one warm-up)."""
+    r = device_time(lambda: st.strain_apply(res, geo, u, free, lam, mu), "strain_apply")
     bound, by = apply_bound(geo, u, free)
-    device_us = sum(e.time_range.elapsed_us() for e in kern) / len(kern)
-    return {"device_us": device_us, "launches": len(kern) / REPS,
-            "activities_per_apply": len(dev) / REPS,
-            "wrapper_device_us": sum(e.time_range.elapsed_us() for e in dev) / REPS,
-            "bound_us": bound, "bound_by": by, "share": bound / device_us}
+    return {"device_us": r["device_us"], "launches": r["launches"],
+            "activities_per_apply": r["activities"], "wrapper_device_us": r["all_device_us"],
+            "bound_us": bound, "bound_by": by, "share": bound / r["device_us"]}
 
 
 def main(argv=None) -> int:

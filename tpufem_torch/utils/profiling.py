@@ -60,6 +60,7 @@ def median_event_ms(fn, runs: int = 21) -> float:
 
 
 L2_FLUSH_BYTES = 256 * 2**20  # five times the H100's 50 MB L2
+_HEAD_S = 0.01  # the head of a profiler window, whose device records may be lost
 
 
 def device_time(fn, kernel: str, reps: int = 20, cold: bool = False) -> dict:
@@ -70,31 +71,57 @@ def device_time(fn, kernel: str, reps: int = 20, cold: bool = False) -> dict:
     ``all_device_us`` per call. Repeated calls find in the L2 cache what fits
     there; with `cold` the window goes on with `reps` more calls, a buffer
     larger than the L2 overwritten before each, and ``device_us_cold`` is
-    the time per launch of those. A window that recorded no device activity
-    at all is taken again, at most twice; raises if the window saw no such
-    kernel."""
+    the time per launch of those.
+
+    In a process that has run for a while the tracer comes up late: the
+    device records of the launches in a window's first ~100 us are lost (two
+    large kernels, or a third of 20 small ones; their host-side launch records
+    are there), and now and then all of a window's. So the window opens with
+    _HEAD_S seconds of calls that are not counted, then a synchronize, and only
+    the device records that start after that synchronize returned are read;
+    a window with no device record, or whose counts are no multiple of `reps`,
+    is taken again, at most four times. Raises if no window had whole counts,
+    or if the window saw no such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda") if cold else None
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a window now and then comes back without any device record
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            head_ends = time.perf_counter() + _HEAD_S
+            while time.perf_counter() < head_ends:
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(2e-4)  # device and host timestamps may differ by a few us
             for _ in range(reps):
                 fn()
             for _ in range(reps if cold else 0):
                 flush.zero_()
                 fn()
             torch.cuda.synchronize()
-        dev = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
+        events = list(prof.events())
+        # the synchronize after the head: the first one that began after a launch
+        first = min((e.time_range.start for e in events if "LaunchKernel" in e.name),
+                    default=float("-inf"))
+        syncs = [e.time_range.end for e in events
+                 if e.name == "cudaDeviceSynchronize" and e.time_range.start >= first]
+        if not syncs:
+            raise RuntimeError("the profiler recorded no cudaDeviceSynchronize: the head of "
+                               "the window cannot be told from the calls that count")
+        dev = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.time_range.start >= min(syncs)),
                      key=lambda e: e.time_range.start)
-        if dev:
+        kern = [e.time_range.elapsed_us() for e in dev if kernel in e.name]
+        if dev and len(dev) % reps == 0 and len(kern) % reps == 0:
             break
-    kern = [e.time_range.elapsed_us() for e in dev if kernel in e.name]
+    else:
+        raise RuntimeError(f"five profiler windows in a row lost device records: the last "
+                           f"held {len(dev)} activities, {len(kern)} of *{kernel}*, for {reps} "
+                           f"calls")
     if not kern:
-        raise RuntimeError(f"the profiler saw no kernel named *{kernel}*: "
+        raise RuntimeError(f"the profiler saw no kernel named *{kernel}* among "
                            f"{sorted({e.name for e in dev})}")
     out = {}
     if cold:  # the window's second half: the same activities and one overwrite per call
