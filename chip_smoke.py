@@ -54,12 +54,32 @@ trained checkpoint exists). Along the way:
      MEDIUM: the three spec cases through tpufem_torch.pipeline.verify, a
      user MSH2 mesh through the mesh and FEM stages, and the hard case down
      the gather ladder;
-  7. prints the peak device memory of the phase-3 solve, the training phase
-     and the gather solve, the kernels' JSON line, then
-     {"ok": true, "device": {...}}.
+  7. the dynamics path: (a) kernels F (element_stress) and G (geom_apply)
+     against their plain versions at DOF100K, wing 0 tiled over q = 12
+     lanes, and at the shapes (d) and (e) launch them with (the CLIs' grid
+     32x40x4 and wing at q = 16 and q = 12), f64 and f32, bitwise
+     repeatable, exactly 1 launch and 1 device activity per call, with event
+     times, device time (repeated and with the L2 flushed) and bound; the
+     kernels' line takes F's and G's numbers at the shape of most of their
+     launches in (b)-(e); then, launch counters zeroed: (b) WingModal at
+     DOF100K, wing 0, 6 modes (converged, first eigen-residual <= 1e-6,
+     ascending positive frequencies, first mode spanwise bending); (c) the
+     modal_analysis CLI at its defaults (32x40x4, 19,803 DOF), the six
+     frequencies within 1e-6 of results/modal_demo/modal_report.json, mode
+     GLBs parsed; (d) the buckling_analysis CLI at its defaults (4 modes, tol
+     1e-5), the factors within 1e-4 of
+     results/buckling_demo/buckling_report.json; (e) the prestress_sweep CLI
+     at p = 0 (the spectrum of (c) within 1e-6) and p = 0.5 lambda_cr (a lower
+     first frequency);
+  8. prints the wall time of every phase, the peak device memory of the
+     phase-3 solve, the training phase, the gather solve and the dynamics
+     phase, the kernels' JSON line, then {"ok": true, "device": {...}}.
 
 Every phase raises on failure; the script then exits nonzero and prints no
 result. Usage: python3 chip_smoke.py   (one card, no arguments)
+
+Its phases took 129 s (phase 7: 42 s) of ~145 s of command time on an
+NVIDIA H100 80GB HBM3 at 700 W.
 """
 
 from __future__ import annotations
@@ -308,11 +328,20 @@ def main() -> int:
 
     dev = torch.device("cuda")
     kernels, state = run(dev, DOF100K, BATCH)
+    walls = state["walls"]
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     run_training_path(dev, state["segment"])
+    walls["5 training path"] = time.perf_counter() - t0
     state["peak_bytes"]["training phase"] = torch.cuda.max_memory_allocated()
     kernels = segment_kernel_entries(state["segment"]) + kernels
+    t0 = time.perf_counter()
     kernels += run_gather_path(dev, DOF100K, state)
+    walls["6 gather path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kernels += run_dynamics(dev, DOF100K, state)
+    walls["7 dynamics path"] = time.perf_counter() - t0
+    print(json.dumps({"phase_wall_s": walls}))
     print(json.dumps({"peak_device_memory_bytes": state["peak_bytes"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -337,6 +366,8 @@ def run(dev, res, batch):
     from tpufem_torch.pipeline.types import PRD_RANGES
 
     # ---- 1. build
+    walls = {}
+    t_phase = time.perf_counter()
     load_kernels()
     print(f"[build] kernels built in {build_info['seconds']:.2f} s -> {build_info['path']}")
     for line in build_info.get("log", "").splitlines():
@@ -348,8 +379,13 @@ def run(dev, res, batch):
     sample_params(rng, batch, PRD_RANGES)  # bench's warm-up draw
     p4 = sample_params(rng, batch, PRD_RANGES)
 
+    walls["1 build"] = time.perf_counter() - t_phase
+
     # ---- 2. kernel B on the card
+    t_phase = time.perf_counter()
     kb = check_strain_apply(dev, res, p4)
+    walls["2 kernel B"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
 
     # ---- 3 + 4. the main path, with the launch counters zeroed just before
     lam, mu = lame_params(Material())
@@ -468,7 +504,8 @@ def run(dev, res, batch):
                                                       graphs[0].num_nodes)),
                                          (f"{batch}-graph batch", merged))}
 
-    state = {"solver": solver, "p4": p4, "out": out, "peak_bytes": peak_bytes,
+    walls["3-4 stencil solve, surrogate"] = time.perf_counter() - t_phase
+    state = {"solver": solver, "p4": p4, "out": out, "peak_bytes": peak_bytes, "walls": walls,
              "stencil_csr_launches": launches["csr_segment_sum"],
              "segment": {"shapes": shapes, "launches": launches}}
     b64, b32 = kb["f64"], kb["f32"]
@@ -1028,6 +1065,174 @@ def run_gather_path(dev, res, state):
          "device_us": ke["incidence C=3"]["device_us"], "share": ke["incidence C=3"]["share"],
          "shapes": ke},
     ]
+
+
+# ---------------------------------------------------------------- phase 7
+
+REPO = Path(__file__).resolve().parent
+MODAL_REPORT = REPO / "results" / "modal_demo" / "modal_report.json"
+BUCKLING_REPORT = REPO / "results" / "buckling_demo" / "buckling_report.json"
+
+
+def dynamics_counters():
+    """The launch counters of the dynamics path's kernels, by the names of
+    the kernels' line."""
+    from tpufem_torch.fem import buckling as bk
+    from tpufem_torch.fem import stencil as st
+    from tpufem_torch.ops import csr_segment_sum as cs
+
+    return {"strain_apply": st.strain_apply, "csr_segment_sum": cs.csr_segment_sum,
+            "element_stress": bk.element_stress, "geom_apply": bk.geom_apply}
+
+
+def require_spanwise_bending(nodes, phi):
+    """The first mode of a clamped thin wing is first bending: mostly z,
+    amplitude growing root band -> mid -> tip band (tests/test_modal.py)."""
+    comp = (phi**2).sum(axis=0)
+    require(comp[2] > 5 * max(comp[0], comp[1]), f"mode 1 not z-dominant: {comp}")
+    y = nodes[:, 1]
+    span = y.max() - y.min()
+    amp = np.abs(phi[:, 2])
+    tip = amp[y > y.min() + 0.8 * span].mean()
+    mid = amp[(y > y.min() + 0.4 * span) & (y < y.min() + 0.6 * span)].mean()
+    root = amp[y < y.min() + 0.2 * span].mean()
+    require(tip > mid > root, f"mode 1 amplitude root {root:.3e} mid {mid:.3e} tip {tip:.3e}")
+
+
+def cli_report(mod, argv, out_dir, name):
+    """Run a dynamics CLI on the card; its report JSON and wall seconds."""
+    t0 = time.perf_counter()
+    rc = mod.main([*argv, "--out", str(out_dir), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(rc == 0, f"{mod.__name__} exited {rc}")
+    return json.loads((out_dir / name).read_text()), wall
+
+
+def run_dynamics(dev, res, state):
+    """Phase 7: kernels F and G, then WingModal at DOF100K and the three
+    dynamics CLIs at their defaults against tpufem's recorded reports.
+    Returns kernels F's and G's report entries."""
+    from tpufem_torch.fem.modal import WingModal
+    from tpufem_torch.profile_geometric import (
+        CLI_P4,
+        CLI_RES,
+        CLI_SHAPES,
+        Q,
+        REPLACES,
+        SOURCES,
+        line,
+        measure,
+    )
+    from tpufem_torch.scripts import buckling_analysis, modal_analysis, prestress_sweep
+
+    # ---- 7a. kernels F and G at DOF100K, q = 12, and at the grid and lane
+    # counts the buckling (7d) and prestress (7e) CLIs launch them with
+    geo = {"DOF100K": measure(res, Q, dev)}
+    for label, q in CLI_SHAPES.items():
+        geo[label] = measure(CLI_RES, q, dev, CLI_P4)
+    for label, recs in geo.items():
+        for rec in recs.values():
+            print(line(label, rec))
+
+    counters = dynamics_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    fg = ("element_stress", "geom_apply")
+
+    def fg_launches():
+        return np.array([counters[n].launches for n in fg])
+
+    # ---- 7b. WingModal at DOF100K, wing 0 of the seeded batch
+    t0 = time.perf_counter()
+    wm = WingModal(res, state["p4"][0])
+    out = wm.solve(n_modes=6)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    f = out.freqs_hz
+    print(f"[modal] DOF100K wing 0 ({3 * wm.num_nodes} DOF), 6 modes, q=12: {f.tolist()} Hz; "
+          f"{out.sweeps} sweeps, {out.inner_iters} block-CG iterations, converged "
+          f"{out.converged}; eig_residual {[f'{r:.2e}' for r in out.eig_residual]}; wall "
+          f"{wall:.3f} s (solver set-up included)")
+    require(out.converged, "DOF100K modal solve did not converge")
+    require(out.eig_residual[0] <= 1e-6, f"mode 1 eigen-residual {out.eig_residual[0]:.3e}")
+    require(f[0] > 0 and bool(np.all(np.diff(f) > 0)), f"frequencies not ascending: {f}")
+    require_spanwise_bending(wm.mesh.nodes, out.modes[:, :, 0])
+
+    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="smoke_dyn_") as root:
+        root = Path(root)
+        # ---- 7c. modal CLI at its defaults against tpufem's record
+        rep, wall = cli_report(modal_analysis, ["--glb"], root / "modal", "modal_report.json")
+        ref = json.loads(MODAL_REPORT.read_text())
+        fm, fr = np.array(rep["freqs_hz"]), np.array(ref["freqs_hz"])
+        dm = float(np.max(np.abs(fm - fr) / fr))
+        print(f"[modal] CLI defaults {rep['resolution']} ({rep['n_dof']} DOF): {fm.tolist()} Hz, "
+              f"{rep['sweeps']} sweeps (tpufem's record: {ref['sweeps']}), converged "
+              f"{rep['converged']}; largest relative difference from {MODAL_REPORT.name}: "
+              f"{dm:.3e} (bar 1e-6); CLI wall {wall:.3f} s, solve {rep['wall_s']} s")
+        require(rep["converged"] and dm <= 1e-6, f"modal vs tpufem's record: {dm:.3e}")
+        for i, fi in enumerate(fm):
+            require_glb(root / "modal" / f"mode_{i + 1:02d}_{fi:.1f}hz.glb")
+
+        # ---- 7d. buckling CLI at its defaults against tpufem's record
+        n_free = fg_launches()  # the free-vibration solves launch neither F nor G
+        require(not n_free.any(), f"F, G launched by the free-vibration solves: {n_free}")
+        rep, wall = cli_report(buckling_analysis, [], root / "buckling", "buckling_report.json")
+        n_buckling = fg_launches()
+        ref = json.loads(BUCKLING_REPORT.read_text())
+        lb, lr = np.array(rep["factors"], float), np.array(ref["factors"], float)
+        db = float(np.max(np.abs(lb - lr) / lr))
+        print(f"[buckling] CLI defaults ({rep['n_dof']} DOF, 4 modes, tol 1e-5): factors "
+              f"{lb.tolist()}, {rep['sweeps']} sweeps (tpufem's record: {ref['sweeps']}), "
+              f"converged {rep['converged']}; largest relative difference from "
+              f"{BUCKLING_REPORT.name}: {db:.3e} (bar 1e-4); CLI wall {wall:.3f} s, solve "
+              f"{rep['wall_s']} s")
+        require(rep["converged"] and db <= 1e-4, f"buckling vs tpufem's record: {db:.3e}")
+
+        # ---- 7e. the stress-stiffened spectrum at p = 0 and 0.5 lambda_cr
+        p = 0.5 * rep["load_factor"]
+        rep, wall = cli_report(
+            prestress_sweep, ["--load_factors", "0", repr(p), "--n_modes", "6", "--tol", "1e-9",
+                              "--inner_maxiter", "400"],
+            root / "prestress", "prestress_sweep.json")
+        f0, fp = np.array(rep["freqs_hz"][0]), np.array(rep["freqs_hz"][1])
+        d0 = float(np.max(np.abs(f0 - fm) / fm))
+        print(f"[prestress] p = 0: largest relative difference from the free vibration of 7c "
+              f"{d0:.3e} (bar 1e-6); p = {p:.1f} (0.5 lambda_cr): {fp.tolist()} Hz, f1 "
+              f"{fp[0] / f0[0] - 1:+.2%}; sweeps {rep['sweeps']}, converged {rep['converged']}; "
+              f"CLI wall {wall:.3f} s")
+        require(all(rep["converged"]) and d0 <= 1e-6, f"p = 0 vs free vibration: {d0:.3e}")
+        require(fp[0] < f0[0], f"p = 0.5 lambda_cr did not lower f1: {fp[0]} vs {f0[0]}")
+        by_shape = dict(zip(CLI_SHAPES, (n_buckling, fg_launches() - n_buckling)))
+
+    state["peak_bytes"]["dynamics phase"] = torch.cuda.max_memory_allocated()
+    launches = {name: c.launches for name, c in counters.items()}
+    fg_by_shape = {s: dict(zip(fg, n.tolist())) for s, n in by_shape.items()}
+    print(f"[dynamics] kernel launches (7b-7e): {launches}; F and G by shape {fg_by_shape}")
+    for name, n in launches.items():
+        require(n > 0, f"{name} was not launched on the dynamics path")
+    entries = []
+    for i, name in enumerate(fg):
+        shape_n = {s: int(n[i]) for s, n in by_shape.items()}
+        require(sum(shape_n.values()) == launches[name],
+                f"{name}: launches outside the buckling and prestress CLIs")
+        main = max(shape_n, key=shape_n.get)  # the shape of most launches (the first on a tie)
+        rec, rec32 = geo[main][f"{name} f64"], geo[main][f"{name} f32"]
+        entries.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches[name], "shape": main, "launches_by_shape": shape_n,
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms")},
+            "bound_ms": rec["bound_us"] / 1e3, "bound_by": rec["bound_by"], "library_ms": None,
+            **{k: rec[k] for k in ("device_us", "device_us_cold", "share", "share_repeated",
+                                   "activities", "q")},
+            "f32": {k: rec32[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_us",
+                                          "device_us", "device_us_cold", "share")},
+            "shapes": {s: {d: {k: r[f"{name} {d}"][k]
+                               for k in ("q", "max_abs_err", "ms", "plain_ms", "bound_us",
+                                         "device_us", "device_us_cold", "share")}
+                           for d in ("f64", "f32")} for s, r in geo.items()}})
+    return entries
 
 
 if __name__ == "__main__":

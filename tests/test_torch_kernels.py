@@ -11,15 +11,24 @@ import pytest
 import torch
 
 from tpufem_torch.fem import assembly as tas
+from tpufem_torch.fem import buckling as tbk
 from tpufem_torch.fem import stencil as tst
 from tpufem_torch.fem.driver import WingSolveConfig, solve_wing_case
 from tpufem_torch.fem.elements import tet4_setup
+from tpufem_torch.fem.modal import WingModal
 from tpufem_torch.fem.material import Material, lame_params
 from tpufem_torch.fem.stencil_mg import WingStencilT
-from tpufem_torch.mesher import COARSE, MEDIUM, WingMeshResolution, structured_wing_mesh
+from tpufem_torch.mesher import (
+    COARSE,
+    DOF100K,
+    MEDIUM,
+    WingMeshResolution,
+    structured_wing_mesh,
+)
 from tpufem_torch.ops import csr_segment_sum as tcs
 from tpufem_torch.ops import gather_scatter as tgs
 from tpufem_torch.profile_gather_operator import operator_inputs, permuted
+from tpufem_torch.profile_geometric import geometric_inputs, measure as measure_geometric
 from tpufem_torch.profile_solve import seeded_batch
 from tpufem_torch.sets import build_boundary_sets
 from tpufem_torch.utils.profiling import device_time
@@ -518,11 +527,18 @@ def test_stiffness_apply_rejects_bad_input(cuda, monkeypatch):
         call(grads=shifted)
 
 
-@pytest.mark.parametrize("kernel", ["B", "D", "E"])
+@pytest.mark.parametrize("kernel", ["B", "D", "E", "F", "G"])
 def test_hand_kernels_refuse_requires_grad(cuda, kernel, monkeypatch):
-    """Kernels B, D and E have no backward: a CUDA tensor that requires_grad
-    raises instead of coming back detached; under no_grad it runs."""
-    if kernel == "B":
+    """Kernels B, D, E, F and G have no backward: a CUDA tensor that
+    requires_grad raises instead of coming back detached; under no_grad it
+    runs."""
+    if kernel in ("F", "G"):
+        res = STRAIN_GRIDS["12x10x3-le-weld"]
+        geo, u0, sig, x, free = geometric_inputs(res, 2, cuda)
+        (u0 if kernel == "F" else x).requires_grad_()
+        run = ((lambda: tbk.element_stress(res, geo, u0, LAM, MU)) if kernel == "F"  # noqa: E731
+               else (lambda: tbk.geom_apply(res, geo, sig, x, free)))
+    elif kernel == "B":
         res = STRAIN_GRIDS["12x10x3-le-weld"]
         geo, u, free = _strain_inputs(res, 1, cuda)
         u.requires_grad_()
@@ -593,3 +609,79 @@ def test_gather_solve_on_cuda_matches_cpu(cuda):
             assert sol.converged or tol == 1e-10
         assert np.linalg.norm(sc.u - sh.u) <= 1e-7 * np.linalg.norm(sh.u)
         assert np.abs(sc.vm - sh.vm).max() <= 1e-7 * np.abs(sh.vm).max()
+
+
+GEOMETRIC_GRIDS = {"dof100k": DOF100K, "medium-sharp-te": MEDIUM}
+
+
+@pytest.mark.parametrize("grid", list(GEOMETRIC_GRIDS))
+def test_geometric_kernels_match_plain(cuda, grid):
+    """Kernels F (element_stress) and G (geom_apply) against their plain
+    versions at q = 12, f64 within 1e-12 and f32 within 1e-5 of the largest
+    plain f64 entry, one launch per call, the same bits twice (measure
+    raises otherwise)."""
+    out = measure_geometric(GEOMETRIC_GRIDS[grid], 12, cuda, timed=False)
+    assert sorted(out) == ["element_stress f32", "element_stress f64", "geom_apply f32",
+                           "geom_apply f64"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("kernel", ["element_stress", "geom_apply"])
+def test_geometric_kernels_are_one_device_kernel(cuda, kernel, dtype):
+    """One call on the card, welds and mask included, is exactly one device
+    activity."""
+    res = MEDIUM
+    geo, u0, sig, x, free = geometric_inputs(res, 12, cuda)
+    geo = tuple(t.to(dtype) for t in geo)
+    u0, sig, x, free = (t.to(dtype) for t in (u0, sig, x, free))
+    fn = ((lambda: tbk.element_stress(res, geo, u0, LAM, MU)) if kernel == "element_stress"
+          else (lambda: tbk.geom_apply(res, geo, sig, x, free)))
+    r = device_time(fn, kernel)
+    assert r["launches"] == 1 and r["activities"] == 1, r
+
+
+def test_geom_apply_rejects_bad_input(cuda):
+    res = STRAIN_GRIDS["12x10x3-le-weld"]
+    geo, u0, sig, x, free = geometric_inputs(res, 2, cuda)
+
+    def call(**kw):
+        a = {"geo": geo, "sig": sig, "u": x, "free": free, **kw}
+        return tbk.geom_apply(res, a["geo"], a["sig"], a["u"], a["free"])
+
+    with pytest.raises(TypeError):
+        call(sig=sig.float())
+    with pytest.raises(ValueError):
+        call(sig=sig[:, :, :, :1].contiguous())
+    with pytest.raises(ValueError):
+        call(free=free.cpu())
+    with pytest.raises(ValueError):
+        call(sig=sig.transpose(1, 2))  # symmetric, but not contiguous: never copied
+    with pytest.raises(ValueError):
+        tbk.element_stress(res, (geo[0][:, :, :, :1].contiguous(), geo[1]), u0, LAM, MU)
+
+
+def test_modal_on_cuda_matches_cpu(cuda):
+    """A small WingModal on the card (kernel B in the block CG) agrees with
+    the CPU's."""
+    res = WingMeshResolution(8, 10, 2, 0.006, "le")
+    p4 = (1.2, 0.35, 10.0, 0.10)
+    a = WingModal(res, p4, device=cuda).solve(n_modes=4)
+    b = WingModal(res, p4, device="cpu").solve(n_modes=4)
+    assert a.converged and b.converged
+    np.testing.assert_allclose(a.freqs_hz, b.freqs_hz, rtol=1e-8)
+
+
+def test_buckling_on_cuda_matches_cpu(cuda):
+    """A small WingBuckling and WingPrestressedModal on the card (kernels B,
+    E, F and G) agree with the CPU's."""
+    res = WingMeshResolution(8, 10, 2, 0.006, "le")
+    p4 = (1.2, 0.35, 10.0, 0.10)
+    f0, g0 = tbk.element_stress.launches, tbk.geom_apply.launches
+    a = tbk.WingBuckling(res, p4, device=cuda).solve(n_modes=2, tol=1e-7)
+    b = tbk.WingBuckling(res, p4, device="cpu").solve(n_modes=2, tol=1e-7)
+    assert a.converged and b.converged
+    np.testing.assert_allclose(a.factors, b.factors, rtol=1e-6)
+    assert tbk.element_stress.launches == f0 + 1 and tbk.geom_apply.launches > g0
+    c = tbk.WingPrestressedModal(res, p4, device=cuda).solve(n_modes=4, load_factor=4000.0)
+    d = tbk.WingPrestressedModal(res, p4, device="cpu").solve(n_modes=4, load_factor=4000.0)
+    np.testing.assert_allclose(c.freqs_hz, d.freqs_hz, rtol=1e-8)

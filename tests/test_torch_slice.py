@@ -165,6 +165,11 @@ def test_port_imports_without_jax():
         "tpufem_torch.viz", "tpufem_torch.viz.glb", "tpufem_torch.viz.colormaps",
         "tpufem_torch.viz.results", "tpufem_torch.viz.arrows", "tpufem_torch.pipeline.verify",
         "tpufem_torch.profile_gather", "tpufem_torch.profile_operator", "tpufem_torch.device",
+        "tpufem_torch.fem.modal", "tpufem_torch.fem.buckling", "tpufem_torch.app_core",
+        "tpufem_torch.app", "tpufem_torch.pipeline.validate", "tpufem_torch.profile_geometric",
+        "tpufem_torch.scripts.modal_analysis", "tpufem_torch.scripts.buckling_analysis",
+        "tpufem_torch.scripts.prestress_sweep", "tpufem_torch.scripts.validate_dataset",
+        "tpufem_torch.scripts.repair_geometry_glb",
     ]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"

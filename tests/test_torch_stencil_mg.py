@@ -9,7 +9,10 @@ tpufem.fem.stencil_mg, in f64.
   in the residual once its state is fixed, so Newton-Schulz vs Cholesky does
   not enter this comparison;
 - the port's own setup (lmax, coarsest inverse) against tpufem's: 1e-8, where
-  the two block-inversion methods do enter.
+  the two block-inversion methods do enter;
+- hierarchy_resolutions(res, n_levels) level for level, and StencilMG's
+  constructor arguments as tpufem takes them (n_levels=2, smooth_degree=3,
+  smooth_alpha=0.1): each package's own f32 setup and V-cycle, 1e-5.
 """
 
 import jax.numpy as jnp
@@ -50,7 +53,7 @@ def mg():
     ja = jmg.StencilMG(ra, dtype=jnp.float64)
     state_a = ja.setup(jnp.asarray(P4), LAM, MU)
     state_a = ja.finalize(state_a, P4, LAM, MU)
-    tb = tmg.StencilMG(rb, dtype=torch.float64)
+    tb = tmg.StencilMG(rb, dtype=torch.float64, device="cpu")
     return ra, rb, ja, state_a, tb
 
 
@@ -68,7 +71,7 @@ def test_hierarchy_and_chord_weights_match():
 def test_line_blocks_before_inversion_match(te, monkeypatch):
     ra, rb = _pair(12, 10, 3, te)
     ja = jmg.StencilMG(ra, dtype=jnp.float64)
-    tb = tmg.StencilMG(rb, dtype=torch.float64)
+    tb = tmg.StencilMG(rb, dtype=torch.float64, device="cpu")
     monkeypatch.setattr(jmg, "spd_block_inverse", lambda b: b)  # tpufem's blocks, uninverted
     Xa = jst.nodes_grid(ra, jnp.asarray(P4), jnp.float64)
     Xb = tst.nodes_grid(rb, torch.as_tensor(P4), torch.float64)
@@ -80,7 +83,7 @@ def test_line_blocks_before_inversion_match(te, monkeypatch):
 @pytest.mark.parametrize("te", [0.006, 0.0], ids=["te_floor", "sharp_te"])
 def test_line_block_inverses(te):
     _, rb = _pair(12, 10, 3, te)
-    tb = tmg.StencilMG(rb, dtype=torch.float64)
+    tb = tmg.StencilMG(rb, dtype=torch.float64, device="cpu")
     Xb = tst.nodes_grid(rb, torch.as_tensor(P4), torch.float64)
     C = tst.assemble_stencil(rb, Xb, LAM, MU, offsets=OFFS)
     Bm = tb._line_matrices(0, C)
@@ -130,3 +133,36 @@ def test_setup_matches(mg):
     for li in range(tb.n_levels - 1):
         _close(state_b[li]["lmax"], state_a[li]["lmax"], 1e-8)
     _close(state_b[-1]["Kinv"], state_a[-1]["Kinv"], 1e-12)
+
+
+@pytest.mark.parametrize("n_levels", [None, 1, 2, 3])
+def test_hierarchy_n_levels_matches(n_levels):
+    ra, rb = _pair(16, 24, 4, 0.006)
+    assert [r.key for r in tmg.hierarchy_resolutions(rb, n_levels)] == [
+        r.key for r in jmg.hierarchy_resolutions(ra, n_levels)]
+
+
+def test_vcycle_options_match_tpufem_in_f32():
+    """StencilMG's constructor arguments as tpufem takes them: at n_levels=2,
+    smooth_degree=3, smooth_alpha=0.1, each package's own f32 setup and one
+    V-cycle on the same residual agree to 1e-5 of the largest entry (f32
+    setups: power iterations and block inverses in another order; measured
+    3.7e-7)."""
+    ra, rb = _pair(16, 24, 4, 0.006)
+    kw = {"n_levels": 2, "smooth_degree": 3, "smooth_alpha": 0.1}
+    ja = jmg.StencilMG(ra, dtype=jnp.float32, **kw)
+    tb = tmg.StencilMG(rb, dtype=torch.float32, device="cpu", **kw)
+    assert (tb.n_levels, tb.smooth_degree, tb.smooth_alpha, tb.power_iters, tb.lmax_safety) == (
+        2, 3, 0.1, 10, 1.2)
+    p32 = P4.astype(np.float32)
+    lam32, mu32 = float(np.float32(LAM)), float(np.float32(MU))
+    state_a = ja.finalize(ja.setup(jnp.asarray(p32), jnp.float32(lam32), jnp.float32(mu32)),
+                          p32, lam32, mu32)
+    state_b = tb.setup(p32, lam32, mu32)
+    rng = np.random.default_rng(4)
+    r_nodes = rng.normal(size=(jst.grid_meta(ra)["num_nodes"], 3, len(P4)))
+    rg = (np.array(jst.to_grid(ra, jnp.asarray(r_nodes))) * np.asarray(ja.free_masks[0])
+          ).astype(np.float32)
+    za = ja.apply(state_a, jnp.asarray(rg))
+    zb = tb.apply(state_b, torch.as_tensor(rg))
+    _close(zb, za, 1e-5)

@@ -8,13 +8,19 @@ matplotlib, and nothing from ``tpufem`` (whose ``__init__`` imports JAX).
 What runs here today: a batch of wing designs -> the DOF100K structured
 Kuhn-tet4 mesh -> the f64-outer multigrid-preconditioned CG solve
 (``fem.stencil_mg.WingStencilT``) -> von Mises -> surface graphs -> the
-GraphSAGE surrogate (``models.sage.GraphSAGE``); and the surrogate workflow
-around it: the dataset CLIs, training and inference (``scripts/``).
+GraphSAGE surrogate (``models.sage.GraphSAGE``); the surrogate workflow
+around it: the dataset CLIs, training and inference (``scripts/``); the
+gather-path FEM stage for user meshes; and the dynamics: modal analysis,
+linearized buckling and the stress-stiffened spectrum (``fem.modal``,
+``fem.buckling``) with their CLIs.
 
 Hand-written CUDA kernels (``csrc/``, built on first use into ``build/``):
-  - ``ops.gather_scatter.sorted_segment_sum``  (A: SAGE mean aggregation)
-  - ``ops.gather_scatter.segment_gather``      (C: its backward)
-  - ``fem.stencil.strain_apply``               (B: the FEM operator, f32 + f64)
+  - ``ops.gather_scatter``: A (SAGE mean aggregation), C (its backward)
+  - ``fem.stencil.strain_apply``         (B: the grid FEM operator)
+  - ``fem.assembly.stiffness_apply``     (D: the gather FEM operator)
+  - ``ops.csr_segment_sum``              (E: fixed-order sums)
+  - ``fem.buckling.element_stress``      (F: per-tet pre-stress)
+  - ``fem.buckling.geom_apply``          (G: the geometric stiffness)
 On a CPU tensor each wrapper runs its plain PyTorch version instead.
 """
 

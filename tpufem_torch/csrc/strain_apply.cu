@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_tet.cuh"
+
 namespace {
 
 constexpr int kLanes = 32;          // cells along span per block (one warp)
@@ -97,10 +99,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Hex corner q of the unit cell as (di, dj) in its layer: q and q + 4 (the
-// layer above) share it. Must match tpufem_torch/mesher.py::_HEX_CORNERS.
-__device__ __forceinline__ int corner_di(int q) { return (q & 3) == 1 || (q & 3) == 2; }
-__device__ __forceinline__ int corner_dj(int q) { return (q & 3) >= 2; }
+using grid_tet::corner_di;
+using grid_tet::corner_dj;
+using grid_tet::kuhn;
+using grid_tet::weld_row;
 
 // One Kuhn tet of the thread's cell: strain from its 4 corner displacements,
 // stress, and the 4 corner forces vol * sigma . g_a added to the corner sums
@@ -111,13 +113,10 @@ template <typename T>
 __device__ __forceinline__ void tet_forces(int tet, const T* sg, int plane,
                                            const T (&U)[8][3], T (&lo)[4][3],
                                            T (&hi)[4][3], T lam, T mu) {
-  // Kuhn tets of the unit hex; must match tpufem_torch/mesher.py::_KUHN_TETS.
-  constexpr int kKuhn[6][4] = {{0, 1, 2, 6}, {0, 2, 3, 6}, {0, 3, 7, 6},
-                               {0, 7, 4, 6}, {0, 4, 5, 6}, {0, 5, 1, 6}};
   T H[3][3] = {};  // H[d][e] = sum_a g[t,a,d] * u_a[e]
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
-    const int q = kKuhn[tet][a];
+    const int q = kuhn(tet, a);
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
       const T gd = sg[(a * 3 + d) * plane];
@@ -137,7 +136,7 @@ __device__ __forceinline__ void tet_forces(int tet, const T* sg, int plane,
   }
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
-    const int q = kKuhn[tet][a];
+    const int q = kuhn(tet, a);
     const T g0 = sg[(a * 3 + 0) * plane];
     const T g1 = sg[(a * 3 + 1) * plane];
     const T g2 = sg[(a * 3 + 2) * plane];
@@ -230,7 +229,7 @@ __global__ void __launch_bounds__(kThreads) strain_apply_kernel(Args<T> p) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int i = ci + corner_di(q), j = cj + corner_dj(q);
-      const bool weld = i == 0 || (p.weld_te && i == NI - 1);
+      const bool weld = weld_row(i, NI, p.weld_te);
       const int node = (i * NK + (weld ? 0 : k)) * NJ + j;
       const T fr = __ldg(p.free + j);
 #pragma unroll
@@ -247,7 +246,7 @@ __global__ void __launch_bounds__(kThreads) strain_apply_kernel(Args<T> p) {
 
   const bool writer = li < kOwnI && lj < kOwnJ && n0i + li < NI && n0j + lj < NJ;
   const int wi = n0i + li, wj = n0j + lj;
-  const bool wweld = wi == 0 || (p.weld_te && wi == NI - 1);
+  const bool wweld = weld_row(wi, NI, p.weld_te);
   const T wfree = writer ? __ldg(p.free + wj) : T(0);
   const int wnode = b * uplane + wi * NK * NJ + wj;  // the writer's node at k = 0
   T wsum[3] = {T(0), T(0), T(0)};  // weld rows: the thickness sum

@@ -217,33 +217,49 @@ def strain_apply_plain(res: WingMeshResolution, geo, u, free, lam, mu):
     return y + u * (1.0 - free)
 
 
-def check_strain_apply_inputs(res: WingMeshResolution, geo, u, free) -> None:
-    """Raise unless kernel B takes these inputs as they are: u (3,B,NI,NK,NJ)
-    on res's grid, g (6,4,3,B,nc,nt,ns), vol (6,B,nc,nt,ns) and the root mask
-    free (1,1,1,1,NJ), all contiguous, of one float dtype (f32 or f64) on one
-    device, with every index below 2^31 (the kernel indexes in 32 bits), none
-    of them wanting a gradient (the kernel has no backward)."""
-    g, vol = geo
+def check_grid_operands(name: str, res: WingMeshResolution, u, named: dict) -> None:
+    """Raise unless grid kernel `name` (B, F or G) takes these operands as
+    they are: u (3,B,NI,NK,NJ) on res's grid and every tensor in `named`
+    (name -> (tensor, expected shape)), contiguous, of u's dtype (f32 or f64),
+    on u's device, with every index below 2^31 (the kernels index in 32
+    bits), none of them wanting a gradient (the kernels have no backward)."""
     if u.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"kernel B takes f32 or f64, got {u.dtype}")
-    if any(t.dtype != u.dtype for t in (g, vol, free)):
-        raise TypeError(f"kernel B needs one dtype: u {u.dtype}, g {g.dtype}, vol {vol.dtype}, "
-                        f"free {free.dtype}")
-    if any(t.device != u.device for t in (g, vol, free)):
-        raise ValueError("kernel B: u, g, vol and free lie on different devices")
+        raise TypeError(f"kernel {name} takes f32 or f64, got {u.dtype}")
     NI, NK, NJ = res.n_chord + 1, res.n_thick + 1, res.n_span + 1
-    B = u.shape[1] if u.dim() == 5 else -1
-    if (u.shape != (3, B, NI, NK, NJ) or g.shape != (6, 4, 3, B, NI - 1, NK - 1, NJ - 1)
-            or vol.shape != (6, B, NI - 1, NK - 1, NJ - 1) or free.shape != (1, 1, 1, 1, NJ)):
-        raise ValueError(f"kernel B on the {NI}x{NK}x{NJ} grid: bad shapes u {tuple(u.shape)} "
-                         f"g {tuple(g.shape)} vol {tuple(vol.shape)} free {tuple(free.shape)}")
-    if not all(t.is_contiguous() for t in (u, g, vol, free)):
-        raise ValueError("kernel B takes contiguous u, g, vol and free")
-    if max(g.numel(), u.numel()) >= 2**31:
-        raise ValueError("kernel B indexes in 32 bits: the arrays are too large")
-    if any(wants_grad(t) for t in (u, g, vol, free)):
-        raise ValueError("kernel B has no backward: a CUDA input requires_grad (the plain "
-                         "version on the CPU differentiates)")
+    if u.dim() != 5 or (u.shape[0], *u.shape[2:]) != (3, NI, NK, NJ):
+        raise ValueError(f"kernel {name} on the {NI}x{NK}x{NJ} grid: bad u {tuple(u.shape)}")
+    for k, (t, want) in {"u": (u, tuple(u.shape)), **named}.items():
+        if t.dtype != u.dtype:
+            raise TypeError(f"kernel {name} needs one dtype: u {u.dtype}, {k} {t.dtype}")
+        if t.device != u.device:
+            raise ValueError(f"kernel {name}: {k} lies on {t.device}, u on {u.device}")
+        if tuple(t.shape) != want:
+            raise ValueError(f"kernel {name}: {k} has shape {tuple(t.shape)}, not {want}")
+        if not t.is_contiguous():
+            raise ValueError(f"kernel {name} takes contiguous operands: {k} is not")
+        if t.numel() >= 2**31:
+            raise ValueError(f"kernel {name} indexes in 32 bits: {k} is too large")
+        if wants_grad(t):
+            raise ValueError(f"kernel {name} has no backward: {k} requires_grad (the plain "
+                             f"version on the CPU differentiates)")
+
+
+def grid_shapes(res: WingMeshResolution, B: int) -> dict:
+    """The shapes of the grid kernels' cell operands at B lanes: g, vol, the
+    per-tet stress sig and the root mask free."""
+    nc, nt, ns = res.n_chord, res.n_thick, res.n_span
+    return {"g": (6, 4, 3, B, nc, nt, ns), "vol": (6, B, nc, nt, ns),
+            "sig": (6, 3, 3, B, nc, nt, ns), "free": (1, 1, 1, 1, ns + 1)}
+
+
+def check_strain_apply_inputs(res: WingMeshResolution, geo, u, free) -> None:
+    """Raise unless kernel B takes these inputs as they are (check_grid_operands
+    with g (6,4,3,B,nc,nt,ns), vol (6,B,nc,nt,ns) and the root mask free
+    (1,1,1,1,NJ))."""
+    g, vol = geo
+    want = grid_shapes(res, u.shape[1] if u.dim() == 5 else 0)
+    check_grid_operands("B (strain_apply)", res, u, {
+        "g": (g, want["g"]), "vol": (vol, want["vol"]), "free": (free, want["free"])})
 
 
 def strain_apply(res: WingMeshResolution, geo, u, free, lam: float, mu: float):

@@ -46,11 +46,12 @@ def coarsen_resolution(res: WingMeshResolution) -> WingMeshResolution:
                               res.spacing)
 
 
-def hierarchy_resolutions(res: WingMeshResolution, min_stations: int = 3):
+def hierarchy_resolutions(res: WingMeshResolution, n_levels: int | None = None,
+                          min_stations: int = 3):
     """Levels from `res` down, halving chord and span while both are even and
-    the halves keep >= min_stations cells."""
+    the halves keep >= min_stations cells, at most `n_levels` levels."""
     out = [res]
-    while True:
+    while n_levels is None or len(out) < n_levels:
         r = out[-1]
         if (
             r.n_chord % 2
@@ -58,8 +59,9 @@ def hierarchy_resolutions(res: WingMeshResolution, min_stations: int = 3):
             or r.n_chord // 2 < min_stations
             or r.n_span // 2 < min_stations
         ):
-            return out
+            break
         out.append(coarsen_resolution(r))
+    return out
 
 
 # ------------------------------------------------------------- 1D transfers
@@ -124,8 +126,11 @@ def _restrict_axis(xf, axis, wL, wR):
 
 
 class StencilMG:
-    """Batched grid-layout V-cycle preconditioner, on `device` in `dtype`,
-    over the full hierarchy_resolutions(res).
+    """Batched grid-layout V-cycle preconditioner, on `device` (the card
+    unless the caller asks for the CPU) in `dtype`, over
+    hierarchy_resolutions(res, n_levels): a degree-`smooth_degree` Chebyshev
+    smoother on [smooth_alpha * lmax, lmax], lmax from `power_iters` power
+    iterations times `lmax_safety`.
 
     Kernel B (strain_apply on CUDA) takes only contiguous operands and raises
     on any other. Every vector the V-cycle and the CG hand to the operator is
@@ -133,15 +138,24 @@ class StencilMG:
     or _line_apply's contiguous output; the gpu test
     test_solve_on_cuda_matches_cpu runs both on the card at B=1 and 8."""
 
-    smooth_degree = 2  # Chebyshev degree
-    smooth_alpha = 0.25  # lmin / lmax of the Chebyshev interval
-    power_iters = 10  # power iterations for lmax of M^-1 A
-    lmax_safety = 1.2  # power iteration approaches lmax from below
-
-    def __init__(self, res: WingMeshResolution, dtype=torch.float32, device="cpu"):
+    def __init__(
+        self,
+        res: WingMeshResolution,
+        dtype=torch.float32,
+        device="cuda",
+        n_levels: int | None = None,
+        smooth_degree: int = 2,
+        smooth_alpha: float = 0.25,
+        power_iters: int = 10,
+        lmax_safety: float = 1.2,
+    ):
         self.dtype = dtype
-        self.device = torch.device(device)
-        self.resolutions = hierarchy_resolutions(res)
+        self.device = resolve_device(device)
+        self.smooth_degree = smooth_degree
+        self.smooth_alpha = smooth_alpha
+        self.power_iters = power_iters
+        self.lmax_safety = lmax_safety  # power iteration approaches lmax from below
+        self.resolutions = hierarchy_resolutions(res, n_levels)
         self.n_levels = len(self.resolutions)
         self.chord_w = [
             _chord_weights(self.resolutions[i], dtype, self.device)
@@ -388,9 +402,32 @@ def _cg_grid_run(A, M, dot, cg, tol, maxiter):
 MG_DTYPE = torch.float32  # the V-cycle preconditioner's dtype inside the f64 CG
 
 
+def ops64(res: WingMeshResolution, geo64, free64, lam64: float, mu64: float,
+          smg: StencilMG, mg_state, extra=None):
+    """(A, M, dot) of an f64-operator CG over the trailing batch axis: the
+    f64 operator (kernel B on CUDA), plus `extra(x)` where given (the
+    prestressed pencil's p * K_G x), the f32 V-cycle of `smg` at `mg_state`
+    as preconditioner, f64 dots per lane. WingStencilT.solve and the block
+    eigensolvers of fem.modal and fem.buckling all build their CG here."""
+
+    def A(x):
+        y = strain_apply(res, geo64, x, free64, lam64, mu64)
+        return y if extra is None else y + extra(x)
+
+    def M(r):
+        return smg.apply(mg_state, r.to(MG_DTYPE)).to(torch.float64)
+
+    def dot(u_, v_):
+        return (u_ * v_).sum(dim=(0, 2, 3, 4))  # (B,)
+
+    return A, M, dot
+
+
 class WingStencilT:
     """Batched wing solver on the stencil engine: f64-operator MG-PCG over
     grid arrays with the f32 V-cycle as preconditioner, on `device`.
+    `mg_levels` caps the V-cycle's levels and `mg_kwargs` go to StencilMG
+    (smooth_degree, smooth_alpha, power_iters, lmax_safety).
 
     This is tpufem's WingStencilT.solve(outer_f64=True) — the bench and
     pipeline path. Its other branches (the f32-only CG, warm_f32, dd_main,
@@ -400,12 +437,14 @@ class WingStencilT:
     # correction rounds: tpufem ran up to 6 on the device plus 8 host-judged
     max_rounds = 14
 
-    def __init__(self, res: WingMeshResolution, device="cuda"):
+    def __init__(self, res: WingMeshResolution, device="cuda", mg_levels: int | None = None,
+                 mg_kwargs: dict | None = None):
         self.res = res
         self.device = resolve_device(device)
         self.bt = WingBatchT(res, device=self.device)
         self.num_nodes = self.bt.num_nodes
-        self.smg = StencilMG(res, dtype=MG_DTYPE, device=self.device)
+        self.smg = StencilMG(res, dtype=MG_DTYPE, device=self.device, n_levels=mg_levels,
+                             **(mg_kwargs or {}))
         self.free64 = self.smg.free_masks[0].to(torch.float64)
         # wall-clock split of the last solve(): setup / solve / recover seconds
         self.last_timing: dict | None = None
@@ -426,21 +465,23 @@ class WingStencilT:
         b = b * bt.free64.to(nodes.dtype)[:, :, None]
         return to_grid(self.res, b)
 
-    def _ops64(self, state, lam64: float, mu64: float):
-        """(A, M, dot) of the f64-outer CG: f64 operator (kernel B on CUDA),
-        f32 V-cycle preconditioner, f64 dots over the trailing batch axis."""
-        smg = self.smg
+    def mg_setup(self, params4, material: Material):
+        """The f32 V-cycle's state for the batch params4 (B,4). The
+        preconditioner sees params and Lame constants rounded to f32, as
+        tpufem's does."""
+        lam, mu = lame_params(material)
+        lam_mg, mu_mg = (float(torch.tensor(v, dtype=MG_DTYPE)) for v in (lam, mu))
+        p4_mg = torch.as_tensor(np.asarray(params4)).to(MG_DTYPE).numpy()
+        return self.smg.setup(p4_mg, lam_mg, mu_mg)
 
-        def A(x):
-            return strain_apply(self.res, state["geo64"], x, self.free64, lam64, mu64)
-
-        def M(r):
-            return smg.apply(state["mg"], r.to(MG_DTYPE)).to(torch.float64)
-
-        def dot(u_, v_):
-            return (u_ * v_).sum(dim=(0, 2, 3, 4))  # (B,)
-
-        return A, M, dot
+    def geometry64(self, params4):
+        """(X64, geo64): the f64 node grid and cell geometry of the batch
+        params4 (B,4), built on the device. The H100 has native IEEE f64;
+        tpufem built them on the host CPU (_host_setup64) because TPU f64 is
+        emulated and its transcendental node map is off by ~1e-8 relative."""
+        p464 = torch.as_tensor(np.asarray(params4), dtype=torch.float64, device=self.device)
+        X64 = nodes_grid(self.res, p464, torch.float64)
+        return X64, cell_geometry(self.res, X64)
 
     def _resid64(self, state, x, lam64, mu64):
         """TRUE f64 residual r = b - A x and its per-lane relative norm, on
@@ -453,23 +494,13 @@ class WingStencilT:
         return r, rn / torch.where(bn > 0, bn, torch.ones_like(bn))
 
     def setup(self, params4, pressure: float, material: Material):
-        """Per-batch state: the f32 multigrid and the f64 system."""
-        p4 = np.asarray(params4)
-        lam, mu = lame_params(material)
-        # the preconditioner sees params and Lame constants rounded to f32,
-        # as tpufem's does
-        lam_mg, mu_mg = (float(torch.tensor(v, dtype=MG_DTYPE)) for v in (lam, mu))
-        p4_mg = torch.as_tensor(p4).to(MG_DTYPE).numpy()
-        state = {"mg": self.smg.setup(p4_mg, lam_mg, mu_mg)}
-        # The f64 system (nodes, cell geometry, loads) is built on the device:
-        # the H100 has native IEEE f64. tpufem built it on the host CPU
-        # (_host_setup64) because TPU f64 is emulated and its transcendental
-        # node map is off by ~1e-8 relative.
-        p464 = torch.as_tensor(p4, dtype=torch.float64, device=self.device)
-        X64 = nodes_grid(self.res, p464, torch.float64)
+        """Per-batch state: the f32 multigrid and the f64 system (nodes, cell
+        geometry, loads), built on the device."""
+        state = {"mg": self.mg_setup(params4, material)}
+        X64, state["geo64"] = self.geometry64(params4)
         state["X64"] = X64
-        state["geo64"] = cell_geometry(self.res, X64)
         state["bg64"] = self._loads_grid(from_grid(self.res, X64), float(pressure))
+        p464 = torch.as_tensor(np.asarray(params4), dtype=torch.float64, device=self.device)
         state["nodes"] = self.bt._nodes(p464, MG_DTYPE)
         return state
 
@@ -499,7 +530,8 @@ class WingStencilT:
 
         t0 = time.perf_counter()
         state = self.setup(params4, pressure, material)
-        A, M, dot = self._ops64(state, lam64, mu64)
+        A, M, dot = ops64(self.res, state["geo64"], self.free64, lam64, mu64, self.smg,
+                          state["mg"])
         sync()
         tm["setup_s"] = time.perf_counter() - t0
 

@@ -4,8 +4,8 @@ The sources are compiled with nvcc for Hopper (``sm_90a``), one nvcc process
 per source, all started together, and linked into one shared library with a
 plain C interface, loaded with ctypes. The build happens at first use, into
 ``build/`` at the repository root (listed in .gitignore), and the library's
-file name carries a hash of the sources, so an edited source is never served
-a stale binary. Nothing here runs at import time: the CPU tests import every
+file name carries a hash of the sources and their headers (``*.cuh``), so an
+edited source is never served a stale binary. Nothing here runs at import time: the CPU tests import every
 module on a machine without nvcc.
 
 Each C entry point launches on the stream it is given, allocates nothing, and
@@ -57,6 +57,14 @@ _SIGNATURES = {
                                                ctypes.c_double, _P],
     "tpufem_stiffness_apply_f64": [_P] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_double,
                                                ctypes.c_double, _P],
+    # (g, u, sig, B, NI, NK, NJ, weld_te, lam, mu, stream)
+    "tpufem_element_stress_f32": [_P, _P, _P] + [ctypes.c_int] * 5 + [ctypes.c_double,
+                                                                      ctypes.c_double, _P],
+    "tpufem_element_stress_f64": [_P, _P, _P] + [ctypes.c_int] * 5 + [ctypes.c_double,
+                                                                      ctypes.c_double, _P],
+    # (g, vol, sig, u, free, y, B, NI, NK, NJ, weld_te, stream)
+    "tpufem_geom_apply_f32": [_P] * 6 + [ctypes.c_int] * 5 + [_P],
+    "tpufem_geom_apply_f64": [_P] * 6 + [ctypes.c_int] * 5 + [_P],
     # (vals, order, starts, out, N, C, stream)
     "tpufem_csr_segment_sum_f32": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
     "tpufem_csr_segment_sum_f64": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
@@ -79,7 +87,7 @@ def load_kernels() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; raises on any failure."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256()
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and the headers they include
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

@@ -1,7 +1,9 @@
 """Command-line entry points of the port, run as
 ``python -m tpufem_torch.scripts.<name>``: the dataset pipeline
-(generate_geometry_dataset -> generate_mesh_dataset -> generate_fem_dataset)
-and the surrogate's train_gnn / inference_gnn. Each has a ``main(argv)``."""
+(generate_geometry_dataset -> generate_mesh_dataset -> generate_fem_dataset,
+validate_dataset, repair_geometry_glb), the surrogate's train_gnn /
+inference_gnn, and the dynamics analyses modal_analysis, buckling_analysis
+and prestress_sweep. Each has a ``main(argv)``."""
 
 import torch
 
