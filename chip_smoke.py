@@ -59,7 +59,9 @@ trained checkpoint exists). Along the way:
      lanes, and at the shapes (d) and (e) launch them with (the CLIs' grid
      32x40x4 and wing at q = 16 and q = 12), f64 and f32, bitwise
      repeatable, exactly 1 launch and 1 device activity per call, with event
-     times, device time (repeated and with the L2 flushed) and bound; the
+     times, device time (repeated and with the L2 flushed) and bound, and
+     at 32x40x4 q = 12 again on a non-symmetric sigma (G computes tpufem's
+     g_a^T sigma g_b); the
      kernels' line takes F's and G's numbers at the shape of most of their
      launches in (b)-(e); then, launch counters zeroed: (b) WingModal at
      DOF100K, wing 0, 6 modes (converged, first eigen-residual <= 1e-6,
@@ -78,7 +80,7 @@ trained checkpoint exists). Along the way:
 Every phase raises on failure; the script then exits nonzero and prints no
 result. Usage: python3 chip_smoke.py   (one card, no arguments)
 
-Its phases took 129 s (phase 7: 42 s) of ~145 s of command time on an
+Its phases took 154 s (phase 7: 52 s) on an
 NVIDIA H100 80GB HBM3 at 700 W.
 """
 
@@ -179,11 +181,12 @@ def check_strain_apply(dev, res, p4):
         t[name] = {"max_abs_err": lvl0[name]["max_abs_err"],
                    "ms": median_ms(lambda: st.strain_apply(res, geo, u, free, lam, mu)),
                    "plain_ms": median_ms(lambda: st.strain_apply_plain(res, geo, u, free, lam, mu)),
-                   **{k: prof[k] for k in ("device_us", "bound_us", "bound_by", "share",
-                                           "activities_per_apply")}}
+                   **{k: prof[k] for k in ("device_us", "device_us_cold", "bound_us", "bound_by",
+                                           "share", "activities_per_apply")}}
         p = t[name]
         print(f"[kernel B] {res.key} B={p4.shape[0]} {name}: {p['device_us']:.2f} us of device "
-              f"time per launch (torch.profiler), bound {p['bound_us']:.2f} us ({p['bound_by']}): "
+              f"time per launch (torch.profiler; {p['device_us_cold']:.2f} with the L2 flushed), "
+              f"bound {p['bound_us']:.2f} us ({p['bound_by']}): "
               f"{p['share']:.1%} of the bound; {p['activities_per_apply']:.0f} device activity per "
               f"apply; single call {p['ms']:.4f} ms vs plain {p['plain_ms']:.4f} ms (median of 7)")
     return {"levels": levels, **t}
@@ -371,7 +374,7 @@ def run(dev, res, batch):
     load_kernels()
     print(f"[build] kernels built in {build_info['seconds']:.2f} s -> {build_info['path']}")
     for line in build_info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "entry function" in line:
             print(f"[build] {line.strip()}")
 
     # ---- batch: the second seeded draw, as bench.py times it
@@ -516,8 +519,9 @@ def run(dev, res, batch):
          "bound_ms": b64["bound_us"] / 1e3, "bound_by": b64["bound_by"], "library_ms": None,
          "bound_us": b64["bound_us"], "device_us": b64["device_us"],
          "activities_per_apply": b64["activities_per_apply"],
+         "device_us_cold": b64["device_us_cold"],
          "f32": {k: b32[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_us", "device_us",
-                                     "activities_per_apply")},
+                                     "device_us_cold", "activities_per_apply")},
          "levels": kb["levels"]},
     ], state
 
@@ -1118,6 +1122,7 @@ def run_dynamics(dev, res, state):
         CLI_P4,
         CLI_RES,
         CLI_SHAPES,
+        DESIGNS,
         Q,
         REPLACES,
         SOURCES,
@@ -1134,6 +1139,9 @@ def run_dynamics(dev, res, state):
     for label, recs in geo.items():
         for rec in recs.values():
             print(line(label, rec))
+    # a non-symmetric sigma holds G to tpufem's g_a^T sigma g_b (measure raises on a miss)
+    for rec in measure(CLI_RES, Q, dev, CLI_P4, timed=False, symmetric=False).values():
+        print(line("32x40x4 non-symmetric sigma", rec))
 
     counters = dynamics_counters()
     for c in counters.values():
@@ -1220,7 +1228,8 @@ def run_dynamics(dev, res, state):
         main = max(shape_n, key=shape_n.get)  # the shape of most launches (the first on a tie)
         rec, rec32 = geo[main][f"{name} f64"], geo[main][f"{name} f32"]
         entries.append({
-            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "name": name, "route": "cuda", "source": SOURCES[name], "design": DESIGNS[name],
+            "replaces": REPLACES[name],
             "launches": launches[name], "shape": main, "launches_by_shape": shape_n,
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms")},
             "bound_ms": rec["bound_us"] / 1e3, "bound_by": rec["bound_by"], "library_ms": None,

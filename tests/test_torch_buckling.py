@@ -4,8 +4,8 @@ grid 8x10x2 (LE spacing, TE floor) and its sharp-TE variant.
 
 - element_stress and geom_apply (the plain versions kernels F and G are
   held to on the card) on the same seeded inputs as tpufem's: 1e-12 of the
-  largest entry (the same arithmetic); geom_apply also against the scattered
-  numpy assembly of K_G: 1e-12;
+  largest entry (the same arithmetic), geom_apply also on a non-symmetric
+  sigma; geom_apply against the scattered numpy assembly of K_G: 1e-12;
 - WingBuckling factors (n_modes 2) against the dense (-K_G, K) pencil with
   sigma0 from scipy's static solve: rtol 1e-5 (tpufem's bar);
 - WingPrestressedModal at p = 0 equals WingModal (the extra term adds
@@ -91,6 +91,29 @@ def test_element_stress_and_geom_apply_match_tpufem(te):
                          torch.as_tensor(free_a)).numpy()
     np.testing.assert_allclose(y_b, y_a, rtol=0, atol=1e-12 * np.abs(y_a).max())
     assert np.abs(y_b[..., 0]).max() == 0.0  # no Dirichlet identity: root rows are zero
+
+
+@pytest.mark.parametrize("te", [0.006, 0.0], ids=["weld_te_off", "weld_te_on"])
+def test_geom_apply_nonsymmetric_sigma_matches_tpufem(te):
+    """On a seeded non-symmetric sigma, geom_apply_plain (kernel G's
+    reference) computes tpufem's V * sum_b (g_a^T sigma g_b) u_b, not the
+    transposed form, which agrees only on a symmetric sigma."""
+    ra, rb, p4, _, x = _grid_inputs(te)
+    geo_a = jst.cell_geometry(ra, jst.nodes_grid(ra, jnp.asarray(p4), jnp.float64))
+    geo_b = tst.cell_geometry(rb, tst.nodes_grid(rb, torch.as_tensor(p4), torch.float64))
+    free = np.ones((1, 1, 1, 1, rb.n_span + 1))
+    free[..., 0] = 0.0
+    sig = np.random.default_rng(1).standard_normal(tst.grid_shapes(rb, len(p4))["sig"])
+    assert np.abs(sig - np.swapaxes(sig, 1, 2)).max() > 1.0
+    y_a = np.asarray(jbk.geom_apply(ra, geo_a, jnp.asarray(sig), jst.to_grid(ra, jnp.asarray(x)),
+                                    jnp.asarray(free)))
+    y_b = tbk.geom_apply_plain(rb, geo_b, torch.as_tensor(sig), tst.to_grid(rb, torch.as_tensor(x)),
+                               torch.as_tensor(free)).numpy()
+    assert np.abs(y_b - y_a).max() <= 1e-12 * np.abs(y_a).max()
+    # the transposed form is a different operator here
+    y_t = tbk.geom_apply_plain(rb, geo_b, torch.as_tensor(np.swapaxes(sig, 1, 2).copy()),
+                               tst.to_grid(rb, torch.as_tensor(x)), torch.as_tensor(free)).numpy()
+    assert np.abs(y_t - y_a).max() > 1e-3 * np.abs(y_a).max()
 
 
 def test_geom_apply_matches_numpy_assembly():

@@ -611,16 +611,23 @@ def test_gather_solve_on_cuda_matches_cpu(cuda):
         assert np.abs(sc.vm - sh.vm).max() <= 1e-7 * np.abs(sh.vm).max()
 
 
-GEOMETRIC_GRIDS = {"dof100k": DOF100K, "medium-sharp-te": MEDIUM}
+GEOMETRIC_GRIDS = {"dof100k": DOF100K, "medium-sharp-te": MEDIUM,
+                   "12x10x3-le-weld": STRAIN_GRIDS["12x10x3-le-weld"],
+                   "13x37x5-ragged": STRAIN_GRIDS["13x37x5-ragged"]}
 
 
+@pytest.mark.parametrize("sigma", ["symmetric", "non-symmetric"])
+@pytest.mark.parametrize("q", [1, 12, 16])
 @pytest.mark.parametrize("grid", list(GEOMETRIC_GRIDS))
-def test_geometric_kernels_match_plain(cuda, grid):
+def test_geometric_kernels_match_plain(cuda, grid, q, sigma):
     """Kernels F (element_stress) and G (geom_apply) against their plain
-    versions at q = 12, f64 within 1e-12 and f32 within 1e-5 of the largest
+    versions at q lanes, f64 within 1e-12 and f32 within 1e-5 of the largest
     plain f64 entry, one launch per call, the same bits twice (measure
-    raises otherwise)."""
-    out = measure_geometric(GEOMETRIC_GRIDS[grid], 12, cuda, timed=False)
+    raises otherwise). The grids take kernel G's 8- and 4-row tiles, ragged
+    tiles, its scalar copies and both weld settings; a non-symmetric sigma
+    holds G to tpufem's g_a^T sigma g_b."""
+    out = measure_geometric(GEOMETRIC_GRIDS[grid], q, cuda, timed=False,
+                            symmetric=sigma == "symmetric")
     assert sorted(out) == ["element_stress f32", "element_stress f64", "geom_apply f32",
                            "geom_apply f64"]
 

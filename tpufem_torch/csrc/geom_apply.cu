@@ -12,146 +12,128 @@
 // reduce: the thickness sum goes to k = 0, the rest is zero) and the mask as y
 // is stored. Weld rows are i = 0 and, when weld_te, i = NI - 1. There is no
 // Dirichlet identity: constrained rows come back zero. K_G is, per Kuhn tet t
-// of every cell, with the tet's stress sigma (symmetric),
+// of every cell, with the tet's stress sigma (a full 3x3, not assumed
+// symmetric), in tpufem's order
 //
-//   f_a[i] = V_t * sum_b (g_a^T sigma g_b) u_b[i],
+//   s_b = sigma g_b,  H[d][i] = sum_b s_b[d] u_b[i],  f_a[i] = V_t * g_a . H[:, i],
 //
-// from the per-tet gradients g (6,4,3,B,nc,nt,ns), volumes vol (6,B,nc,nt,ns),
-// stresses sig (6,3,3,B,nc,nt,ns) and u, y (3,B,NI,NK,NJ), all contiguous, in
-// tpufem's layouts.
+// i.e. f_a = V_t * sum_b (g_a^T sigma g_b) u_b, from the per-tet gradients g
+// (6,4,3,B,nc,nt,ns), volumes vol (6,B,nc,nt,ns), stresses sig
+// (6,3,3,B,nc,nt,ns) and u, y (3,B,NI,NK,NJ), all contiguous, in tpufem's
+// layouts.
 //
 // The bound is bytes. Per lane it reads 132 scalars per cell (72 gradients,
 // 6 volumes, 54 stresses) and u and y: at DOF100K (64x80x6 cells), f64, 34.2 MB
-// per lane, so 274 MB and ~82 us at B = 8, ~122 us at B = 12, at 3.35 TB/s.
+// per lane, so 410.5 MB and ~122.5 us at B = 12, at 3.35 TB/s. The arithmetic
+// is ~200 flops per tet, ~12 us at the FP64 rate outside the tensor cores.
 //
-// Design, node-centric gather in a fixed order: one thread per (case, node)
-// of the full grid, nodes contiguous along span. The thread visits the up to
-// 8 cells around its node (hex corner q = 0..7 of the cell it is corner q of),
-// and in each the tets t = 0..5 that hold that corner, and adds the tet's
-// force on it: each tet is evaluated once for each of its 4 corners, and its
-// 22 planes are read by 4 threads, mostly from L1/L2. The sum order is fixed,
-// with no atomics, so two applies give the same bits. A weld row's k = 0
-// thread sums its whole thickness line, and its other threads store zero.
-// Every index is 32-bit; the wrapper checks that every operand has fewer than
-// 2^31 elements.
+// Design: the cell-centric walk of grid_walk.cuh with the body below: each
+// tet is evaluated once per block that holds its cell, its 22 planes (12
+// gradients, the volume, 9 stresses) staged per (layer, tet) through a
+// cp.async ring, the node sums in a fixed order with no atomics, so two
+// applies give the same bits. Tiles are 32 x 4 cells: at ~200 registers a
+// thread in f64, 8-row tiles leave one block of 8 warps per SM, 4-row tiles
+// two of 4, and measured faster at every shape the solvers launch (1.38x
+// the geometry bytes against 1.18x). The ring holds 3 stages of 23.9 KB in
+// f64 (2 measured 6-25 % slower), 4 of 12.7 KB in f32.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#include "grid_tet.cuh"
+#include "grid_walk.cuh"
 
 namespace {
 
-using grid_tet::corner_di;
-using grid_tet::corner_dj;
-using grid_tet::corner_dk;
 using grid_tet::kuhn;
-using grid_tet::weld_row;
-
-constexpr int kThreads = 256;
 
 template <typename T>
-struct Args {
-  const T* g;
-  const T* vol;
-  const T* sig;
-  const T* u;
-  const T* free;
-  T* y;
-  int B, NI, NK, NJ;
-  int weld_te;
-};
+struct geom_apply_body {
+  static constexpr int kPlanes = 22;  // 4 x 3 gradients, the volume, 3 x 3 stresses
+  static constexpr bool kIdentity = false;
 
-// Adds to acc the forces on node (i, k, j) of the full grid, lane b, from
-// every tet that holds it.
-template <typename T>
-__device__ __forceinline__ void node_forces(const Args<T>& p, int b, int i, int k, int j,
-                                            T (&acc)[3]) {
-  const int NI = p.NI, NK = p.NK, NJ = p.NJ, B = p.B;
-  const int nc = NI - 1, nt = NK - 1, ns = NJ - 1;
-  const int ncell = nc * nt * ns;
-  const int uplane = NI * NK * NJ, ustride = B * uplane;
+  __device__ __forceinline__ void operator()(int tet, const T* sg, int plane,
+                                             const T (&U)[8][3], T (&lo)[4][3],
+                                             T (&hi)[4][3]) const {
+    const T* sig = sg + 13 * plane;  // sigma[d][e] at plane d * 3 + e
+    T H[3][3] = {};                  // H[d][i] = sum_b (sigma g_b)[d] * u_b[i]
 #pragma unroll
-  for (int qn = 0; qn < 8; ++qn) {  // the node is corner qn of cell (ci, ck, cj)
-    const int ci = i - corner_di(qn);
-    const int cj = j - corner_dj(qn);
-    const int ck = k - corner_dk(qn);
-    if (ci < 0 || ci >= nc || cj < 0 || cj >= ns || ck < 0 || ck >= nt) continue;
-    const int c = (ci * nt + ck) * ns + cj;
+    for (int b = 0; b < 4; ++b) {
+      const int q = kuhn(tet, b);
+      const T g0 = sg[(b * 3 + 0) * plane];
+      const T g1 = sg[(b * 3 + 1) * plane];
+      const T g2 = sg[(b * 3 + 2) * plane];
 #pragma unroll
-    for (int t = 0; t < 6; ++t) {
-      int a = -1;
-#pragma unroll
-      for (int aa = 0; aa < 4; ++aa)
-        if (kuhn(t, aa) == qn) a = aa;
-      if (a < 0) continue;  // resolved at compile time once the loops unroll
-      const T* gt = p.g + (t * 12 * B + b) * ncell + c;  // plane (a, d): + (a * 3 + d) * B * ncell
-      const T* st = p.sig + (t * 9 * B + b) * ncell + c;
-      const int plane = B * ncell;
-      T s[3][3];
-#pragma unroll
-      for (int d = 0; d < 3; ++d)
-#pragma unroll
-        for (int e = 0; e < 3; ++e) s[d][e] = __ldg(st + (d * 3 + e) * plane);
-      T ga[3];
-#pragma unroll
-      for (int d = 0; d < 3; ++d) ga[d] = __ldg(gt + (a * 3 + d) * plane);
-      // r = sigma g_a (sigma is symmetric, so g_a^T sigma g_b = r . g_b)
-      T r[3];
-#pragma unroll
-      for (int d = 0; d < 3; ++d) r[d] = s[d][0] * ga[0] + s[d][1] * ga[1] + s[d][2] * ga[2];
-      const T v = __ldg(p.vol + (t * B + b) * ncell + c);
-      T f[3] = {T(0), T(0), T(0)};
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        const int q = kuhn(t, bb);
-        const int ui = ci + corner_di(q);
-        const int uj = cj + corner_dj(q);
-        const int uk = weld_row(ui, NI, p.weld_te) ? 0 : ck + corner_dk(q);
-        const int node = b * uplane + (ui * NK + uk) * NJ + uj;
-        const T fr = __ldg(p.free + uj);
-        const T cab = r[0] * __ldg(gt + (bb * 3 + 0) * plane) +
-                      r[1] * __ldg(gt + (bb * 3 + 1) * plane) +
-                      r[2] * __ldg(gt + (bb * 3 + 2) * plane);
-#pragma unroll
-        for (int e = 0; e < 3; ++e) f[e] += cab * (__ldg(p.u + e * ustride + node) * fr);
+      for (int d = 0; d < 3; ++d) {
+        const T s = sig[(d * 3 + 0) * plane] * g0 + sig[(d * 3 + 1) * plane] * g1 +
+                    sig[(d * 3 + 2) * plane] * g2;
+        H[d][0] += s * U[q][0];
+        H[d][1] += s * U[q][1];
+        H[d][2] += s * U[q][2];
       }
+    }
+    const T v = sg[12 * plane];
 #pragma unroll
-      for (int e = 0; e < 3; ++e) acc[e] += v * f[e];
+    for (int d = 0; d < 3; ++d)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) H[d][i] *= v;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int q = kuhn(tet, a);
+      const T g0 = sg[(a * 3 + 0) * plane];
+      const T g1 = sg[(a * 3 + 1) * plane];
+      const T g2 = sg[(a * 3 + 2) * plane];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const T f = H[0][i] * g0 + H[1][i] * g1 + H[2][i] * g2;
+        if (q < 4) {
+          lo[q][i] += f;
+        } else {
+          hi[q - 4][i] += f;
+        }
+      }
     }
   }
+};
+
+constexpr int kRows = 4;  // cell rows along chord per block (one warp each)
+
+template <typename T, int VEC, int DEPTH>
+__global__ void __launch_bounds__(grid_walk::kLanes * kRows)
+    geom_apply_kernel(grid_walk::Operands<T> p) {
+  grid_walk::walk<T, kRows, VEC, DEPTH>(p, geom_apply_body<T>{});
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) geom_apply_kernel(Args<T> p) {
-  const int NI = p.NI, NK = p.NK, NJ = p.NJ;
-  const int uplane = NI * NK * NJ, ustride = p.B * uplane;
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= p.B * uplane) return;
-  const int b = idx / uplane, n = idx - b * uplane;
-  const int j = n % NJ, k = (n / NJ) % NK, i = n / (NJ * NK);
-  const bool weld = weld_row(i, NI, p.weld_te);
-  T acc[3] = {T(0), T(0), T(0)};
-  if (!weld) {
-    node_forces<T>(p, b, i, k, j, acc);
-  } else if (k == 0) {
-    for (int kk = 0; kk < NK; ++kk) node_forces<T>(p, b, i, kk, j, acc);
-  }
-  const T fr = __ldg(p.free + j);
-#pragma unroll
-  for (int e = 0; e < 3; ++e) p.y[e * ustride + idx] = acc[e] * fr;
+template <typename T, int VEC>
+int launch_with(const grid_walk::Operands<T>& a, cudaStream_t stream) {
+  constexpr int kDepth = sizeof(T) == 8 ? 3 : 4;
+  constexpr size_t smem =
+      grid_walk::smem_bytes<T, geom_apply_body<T>::kPlanes, kRows, VEC, kDepth>();
+  // above 48 KB of dynamic shared memory needs the opt-in, once per kernel
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      geom_apply_kernel<T, VEC, kDepth>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  geom_apply_kernel<T, VEC, kDepth>
+      <<<grid_walk::grid_of<kRows>(a.B, a.NI, a.NJ), dim3(grid_walk::kLanes, kRows), smem, stream>>>(
+          a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* g, const void* vol, const void* sig, const void* u, const void* free,
            void* y, int B, int NI, int NK, int NJ, int weld_te, void* stream) {
   if (B <= 0 || NI < 2 || NK < 2 || NJ < 2) return 0;
-  const Args<T> a{static_cast<const T*>(g), static_cast<const T*>(vol),
-                  static_cast<const T*>(sig), static_cast<const T*>(u),
-                  static_cast<const T*>(free), static_cast<T*>(y), B, NI, NK, NJ, weld_te};
-  const int n = B * NI * NK * NJ;
-  geom_apply_kernel<T><<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const grid_walk::Operands<T> a{static_cast<const T*>(g), static_cast<const T*>(vol),
+                                 static_cast<const T*>(sig), static_cast<const T*>(u),
+                                 static_cast<const T*>(free), static_cast<T*>(y),
+                                 B, NI, NK, NJ, weld_te};
+  constexpr int kVec = 16 / sizeof(T);
+  // a 16-byte copy needs its span row, every plane and the three bases aligned
+  const bool aligned = (NJ - 1) % kVec == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(vol) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(sig) % 16 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return aligned ? launch_with<T, kVec>(a, st) : launch_with<T, 1>(a, st);
 }
 
 }  // namespace

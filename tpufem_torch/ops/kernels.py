@@ -82,12 +82,14 @@ def _nvcc() -> str:
                        "toolkit is installed")
 
 
-@lru_cache(maxsize=1)
-def load_kernels() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; raises on any failure."""
-    sources = sorted(CSRC.glob("*.cu"))
+def build_library(csrc: Path) -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library of the sources in
+    `csrc`; raises on any failure. The port's own library is load_kernels();
+    the profilers' --compare builds another commit's csrc/ beside it."""
+    csrc = Path(csrc)
+    sources = sorted(csrc.glob("*.cu"))
     digest = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cu*")):  # the sources and the headers they include
+    for src in sorted(csrc.glob("*.cu*")):  # the sources and the headers they include
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -126,6 +128,27 @@ def load_kernels() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@lru_cache(maxsize=1)
+def load_kernels() -> ctypes.CDLL:
+    """Build (if needed) and load the port's kernel library; raises on any
+    failure."""
+    return build_library(CSRC)
+
+
+def compare_libraries(specs) -> dict:
+    """{label: library} for the profilers' --compare LABEL=DIR arguments:
+    each DIR a csrc/ of another commit or variant (e.g. unpacked with `git
+    archive <rev> tpufem_torch/csrc`), built with build_library. Measuring
+    aids only: no entry point of the port loads them."""
+    out = {}
+    for spec in specs:
+        label, sep, path = spec.partition("=")
+        if not sep or not label or not path:
+            raise ValueError(f"--compare takes LABEL=DIR, not {spec!r}")
+        out[label] = build_library(Path(path))
+    return out
 
 
 def wants_grad(t: torch.Tensor) -> bool:

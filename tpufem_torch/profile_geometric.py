@@ -31,8 +31,14 @@ buckling_history: WingBuckling at the CLI defaults (4 modes, q = 16) at each
 --buckling_tols tolerance: the factors, the sweeps, and per sweep the inner
 CG tolerance, its iterations and the factors' largest relative change.
 
+--compare LABEL=DIR ...: kernel G as built from another csrc/ (the parent
+commit's, unpacked with `git archive <rev> tpufem_torch/csrc | tar -x -C
+build/parent`, or a variant's) is timed at every shape beside the port's
+own, before and after it in turns, into a library of its own
+(ops/kernels.py::compare_libraries); nothing else loads it.
+
 Usage: python -m tpufem_torch.profile_geometric [--out PATH]
-           [--buckling_tols 1e-5 1e-7]
+           [--buckling_tols 1e-5 1e-7] [--compare LABEL=DIR ...]
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from tpufem_torch.fem import buckling as bk
 from tpufem_torch.fem import stencil as st
 from tpufem_torch.fem.material import Material, lame_params
 from tpufem_torch.mesher import DOF100K, MEDIUM, WingMeshResolution
+from tpufem_torch.ops.kernels import check, compare_libraries
 from tpufem_torch.profile_solve import seeded_batch
 from tpufem_torch.utils.profiling import device_time, median_event_ms
 
@@ -69,12 +76,18 @@ SOURCES = {"element_stress": "tpufem_torch/csrc/element_stress.cu",
            "geom_apply": "tpufem_torch/csrc/geom_apply.cu"}
 REPLACES = {"element_stress": "tpufem/fem/buckling.py:71",
             "geom_apply": "tpufem/fem/buckling.py:93"}
+DESIGNS = {"element_stress": "a thread per lane and cell, the 6 tets in turn",
+           "geom_apply": "cell-centric walk shared with kernel B (csrc/grid_walk.cuh): a block per "
+                         "lane and 32 x 4 cell tile, 22 planes per (layer, tet) staged "
+                         "through a cp.async ring, fixed-order node sums, no atomics"}
 
 
-def geometric_inputs(res, q, device, p4=None, seed=0):
+def geometric_inputs(res, q, device, p4=None, seed=0, symmetric=True):
     """(geo, u0, sig, x, free) in f64 on `device`: wing p4 (default wing 0 of
     the seeded batch) tiled over q lanes, as GridBlockSolver builds its
-    geometry."""
+    geometry. With `symmetric` False, sig gets a seeded non-symmetric part of
+    its own size, which holds kernel G to tpufem's g_a^T sigma g_b (a kernel
+    that formed g_b^T sigma g_a agrees only on a symmetric sigma)."""
     p4 = np.tile(np.asarray(seeded_batch(8)[0] if p4 is None else p4, np.float64), (q, 1))
     X = st.nodes_grid(res, torch.as_tensor(p4, device=device), torch.float64)
     geo = st.cell_geometry(res, X)
@@ -85,6 +98,9 @@ def geometric_inputs(res, q, device, p4=None, seed=0):
     free[..., 0] = 0.0
     lam, mu = lame_params(Material())
     sig = bk.element_stress_plain(res, geo, u0, lam, mu)
+    if not symmetric:
+        sig = sig + sig.abs().max() * torch.randn(sig.shape, generator=gen, dtype=torch.float64,
+                                                  device=device)
     return geo, u0, sig, x, free
 
 
@@ -109,11 +125,11 @@ def call_bound(name, operands, out, n_tets, dtype):
     return max(t_bytes, t_ops) * 1e6, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def measure(res, q, device, p4=None, timed=True):
+def measure(res, q, device, p4=None, timed=True, symmetric=True):
     """Every kernel of F and G in f64 and f32 at grid `res`, q lanes of wing
-    p4: checks (raises on a miss) and, with `timed`, times. Returns
-    {"<kernel> <dtype>": record}."""
-    geo64, u064, sig64, x64, free64 = geometric_inputs(res, q, device, p4)
+    p4 (sig non-symmetric unless `symmetric`): checks (raises on a miss) and,
+    with `timed`, times. Returns {"<kernel> <dtype>": record}."""
+    geo64, u064, sig64, x64, free64 = geometric_inputs(res, q, device, p4, symmetric=symmetric)
     refs = {k: plain() for k, (_, plain, _) in calls(res, geo64, u064, sig64, x64,
                                                       free64).items()}
     out = {}
@@ -138,6 +154,7 @@ def measure(res, q, device, p4=None, timed=True):
                 raise RuntimeError(f"{name} {dname} at {res.key} q={q}: max|err| {err:.3e} > "
                                    f"{bar} x {scale:.3e}")
             rec = {"kernel": name, "grid": list(res.key), "q": q, "dtype": dname,
+                   "symmetric_sigma": symmetric,
                    "max_abs_err": err, "scale": scale, "rel_err": err / scale,
                    "plain_max_abs_err": plain_err}
             if timed:
@@ -155,6 +172,59 @@ def measure(res, q, device, p4=None, timed=True):
                     share_repeated=bound_us / r["device_us"])
             out[f"{name} {dname}"] = rec
     return out
+
+
+def library_geom_apply(lib, res, geo, sig, u, free):
+    """geom_apply through another build of the kernels (--compare): the
+    wrapper's launch without its operand checks and launch counter. Returns
+    the call; each call overwrites one output buffer."""
+    g, vol = geo
+    _, B, NI, NK, NJ = u.shape
+    y = torch.empty_like(u)
+    fn = lib.tpufem_geom_apply_f64 if u.dtype == torch.float64 else lib.tpufem_geom_apply_f32
+    args = (g.data_ptr(), vol.data_ptr(), sig.data_ptr(), u.data_ptr(), free.data_ptr(),
+            y.data_ptr(), B, NI, NK, NJ, int(res.te_floor_frac == 0.0))
+
+    def call():
+        check(fn(*args, torch.cuda.current_stream(u.device).cuda_stream), "geom_apply")
+        return y
+
+    return call
+
+
+def measure_library(label, lib, res, q, device, p4=None):
+    """Kernel G of library `lib` (another commit's or a variant's build) on
+    measure()'s inputs: error against the plain f64 result, the same bits
+    twice, device time repeated and with the L2 flushed, and the share of
+    the same bound. Returns {"geom_apply <dtype>": record}."""
+    geo64, _, sig64, x64, free64 = geometric_inputs(res, q, device, p4)
+    ref = bk.geom_apply_plain(res, geo64, sig64, x64, free64)
+    out = {}
+    for dt, dname in ((torch.float64, "f64"), (torch.float32, "f32")):
+        geo = tuple(t.to(dt) for t in geo64)
+        sig, x, free = sig64.to(dt), x64.to(dt), free64.to(dt)
+        fn = library_geom_apply(lib, res, geo, sig, x, free)
+        y = fn().clone()
+        err = (y.double() - ref).abs().max().item()
+        r = device_time(fn, "geom_apply", cold=True)
+        bound_us, by = call_bound("geom_apply", (geo[0], geo[1], sig, x, free), y,
+                                  geo[1].numel(), dt)
+        out[f"geom_apply {dname}"] = {
+            "kernel": "geom_apply", "library": label, "grid": list(res.key), "q": q,
+            "dtype": dname, "max_abs_err": err, "rel_err": err / ref.abs().max().item(),
+            "bitwise_repeat": bool(torch.equal(y, fn())), "device_us": r["device_us"],
+            "device_us_cold": r["device_us_cold"], "activities": r["activities"],
+            "bound_us": bound_us, "bound_by": by, "share": bound_us / r["device_us_cold"],
+            "share_repeated": bound_us / r["device_us"]}
+    return out
+
+
+def library_line(label, rec):
+    return (f"[compare {rec['library']}] geom_apply {label} q={rec['q']} {rec['dtype']}: rel err "
+            f"{rec['rel_err']:.2e}, bitwise repeat {rec['bitwise_repeat']}; device "
+            f"{rec['device_us']:.2f} us repeated, {rec['device_us_cold']:.2f} us L2 flushed, "
+            f"{rec['activities']:.0f} activity per call; bound {rec['bound_us']:.2f} us: "
+            f"{rec['share']:.1%} flushed")
 
 
 def line(label, rec):
@@ -222,18 +292,29 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="file for the results as JSON lines")
     ap.add_argument("--buckling_tols", type=float, nargs="*", default=[1e-5, 1e-7])
+    ap.add_argument("--compare", nargs="*", default=[], metavar="LABEL=DIR",
+                    help="also time kernel G as built from each csrc/ DIR (another commit's or a "
+                         "variant's), before and after the port's own, at every shape")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_geometric: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    libs = compare_libraries(args.compare)
     rows = []
     cases = [("DOF100K", DOF100K, Q, None), ("MEDIUM (sharp TE)", MEDIUM, Q, None)]
     cases += [(label, CLI_RES, q, CLI_P4) for label, q in CLI_SHAPES.items()]
     for label, res, q, p4 in cases:
-        for key, rec in measure(res, q, dev, p4).items():
-            print(line(label, rec), flush=True)
-            rows.append({"case": label, **rec})
+        # in turns: the compared builds, the port's kernels, the compared builds again
+        for turn in (0, 1):
+            if turn:
+                for key, rec in measure(res, q, dev, p4).items():
+                    print(line(label, rec), flush=True)
+                    rows.append({"case": label, **rec})
+            for lab, lib in (libs.items() if turn == 0 else reversed(libs.items())):
+                for rec in measure_library(lab, lib, res, q, dev, p4).values():
+                    print(library_line(label, rec), flush=True)
+                    rows.append({"case": label, "turn": turn, **rec})
     r = prestress_share(dev)
     print(f"[prestress] {r['grid']} q=12 p={PRESTRESS_P}: {r['sweeps']} sweeps, "
           f"{r['inner_iters']} CG iterations, {r['wall_s']:.3f} s, {r['ms_per_iter']:.3f} ms per "

@@ -11,9 +11,15 @@ window, so an operator that wraps its kernel in other launches shows them.
 The bound is the larger of the bytes each apply must move (g, vol, u and free
 read once, y written once) over the card's memory rate and its arithmetic
 (FLOPS_PER_TET per Kuhn tet) over the card's rate outside the tensor cores
-(the rates are in tpufem_torch/device.py).
+(the rates are in tpufem_torch/device.py). The window goes on with 20 more
+applies, the L2 flushed before each (``device_us_cold``).
 
-Usage: python -m tpufem_torch.profile_operator [--out PATH]
+--compare LABEL=DIR ...: kernel B as built from another csrc/ (the parent
+commit's, unpacked with `git archive <rev> tpufem_torch/csrc | tar -x -C
+build/parent`) is timed the same way at every case, before and after the
+port's own, into a library of its own (ops/kernels.py::compare_libraries).
+
+Usage: python -m tpufem_torch.profile_operator [--out PATH] [--compare LABEL=DIR ...]
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from tpufem_torch.fem import stencil as st
 from tpufem_torch.fem.material import Material, lame_params
 from tpufem_torch.fem.stencil_mg import hierarchy_resolutions
 from tpufem_torch.mesher import DOF100K, MEDIUM
+from tpufem_torch.ops.kernels import check, compare_libraries
 from tpufem_torch.profile_solve import seeded_batch
 from tpufem_torch.utils.profiling import device_time
 
@@ -61,24 +68,49 @@ def apply_bound(geo, u, free):
     return max(t_bytes, t_ops) * 1e6, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def profile_apply(res, geo, u, free, lam, mu):
-    """Device us per kernel-B launch and device activities per apply, from
-    one torch.profiler window of 20 applies (after one warm-up)."""
-    r = device_time(lambda: st.strain_apply(res, geo, u, free, lam, mu), "strain_apply")
+def profile_apply(res, geo, u, free, lam, mu, fn=None):
+    """Device us per kernel-B launch (repeated, and with the L2 flushed) and
+    device activities per apply, from one torch.profiler window of 20 + 20
+    applies (after one warm-up). fn: the apply to time (default the port's
+    strain_apply on these operands)."""
+    fn = fn or (lambda: st.strain_apply(res, geo, u, free, lam, mu))
+    r = device_time(fn, "strain_apply", cold=True)
     bound, by = apply_bound(geo, u, free)
-    return {"device_us": r["device_us"], "launches": r["launches"],
-            "activities_per_apply": r["activities"], "wrapper_device_us": r["all_device_us"],
-            "bound_us": bound, "bound_by": by, "share": bound / r["device_us"]}
+    return {"device_us": r["device_us"], "device_us_cold": r["device_us_cold"],
+            "launches": r["launches"], "activities_per_apply": r["activities"],
+            "wrapper_device_us": r["all_device_us"], "bound_us": bound, "bound_by": by,
+            "share": bound / r["device_us"], "share_cold": bound / r["device_us_cold"]}
+
+
+def library_strain_apply(lib, res, geo, u, free, lam, mu):
+    """strain_apply through another build of the kernels (--compare): the
+    wrapper's launch without its operand checks and launch counter."""
+    g, vol = geo
+    _, B, NI, NK, NJ = u.shape
+    y = torch.empty_like(u)
+    fn = lib.tpufem_strain_apply_f64 if u.dtype == torch.float64 else lib.tpufem_strain_apply_f32
+    args = (g.data_ptr(), vol.data_ptr(), u.data_ptr(), free.data_ptr(), y.data_ptr(), B, NI, NK,
+            NJ, int(res.te_floor_frac == 0.0), float(lam), float(mu))
+
+    def call():
+        check(fn(*args, torch.cuda.current_stream(u.device).cuda_stream), "strain_apply")
+        return y
+
+    return call
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="file for the results as JSON lines")
+    ap.add_argument("--compare", nargs="*", default=[], metavar="LABEL=DIR",
+                    help="also time kernel B as built from each csrc/ DIR, in turns with the "
+                         "port's own")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_operator: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    libs = compare_libraries(args.compare)
     lam, mu = lame_params(Material())
     p4 = seeded_batch(BATCH)
     cases = [(f"DOF100K level {i}", r) for i, r in enumerate(hierarchy_resolutions(DOF100K)[:-1])]
@@ -87,13 +119,21 @@ def main(argv=None) -> int:
     for label, res in cases:
         for dtype in (torch.float64, torch.float32):
             geo, u, free = operator_inputs(res, p4, dtype, dev)
-            r = profile_apply(res, geo, u, free, lam, mu)
-            r.update(case=label, grid=res.key, batch=BATCH, dtype=str(dtype))
-            rows.append(r)
-            print(f"[{label} {res.key} B={BATCH} {dtype}] kernel B {r['device_us']:.2f} us "
-                  f"per launch, bound {r['bound_us']:.2f} us ({r['bound_by']}): "
-                  f"{r['share']:.1%} of the bound; {r['activities_per_apply']:.0f} device "
-                  f"activities per apply, {r['wrapper_device_us']:.2f} us of device time")
+            # in turns: the compared builds, the port's kernel, the compared builds again
+            order = [*libs, None, *reversed(libs)]
+            for n, lab in enumerate(order):
+                fn = None if lab is None else library_strain_apply(libs[lab], res, geo, u, free,
+                                                                   lam, mu)
+                r = profile_apply(res, geo, u, free, lam, mu, fn)
+                r.update(case=label, grid=res.key, batch=BATCH, dtype=str(dtype),
+                         library=lab or "port", turn=int(n > len(libs)))
+                rows.append(r)
+                print(f"[{label} {res.key} B={BATCH} {dtype}] kernel B ({r['library']}) "
+                      f"{r['device_us']:.2f} us per launch repeated, {r['device_us_cold']:.2f} "
+                      f"us L2 flushed, bound {r['bound_us']:.2f} us ({r['bound_by']}): "
+                      f"{r['share']:.1%} / {r['share_cold']:.1%} of the bound; "
+                      f"{r['activities_per_apply']:.0f} device activities per apply, "
+                      f"{r['wrapper_device_us']:.2f} us of device time", flush=True)
     if args.out:
         with open(args.out, "w") as f:
             f.writelines(json.dumps(r) + "\n" for r in rows)
