@@ -73,14 +73,37 @@ trained checkpoint exists). Along the way:
      results/buckling_demo/buckling_report.json; (e) the prestress_sweep CLI
      at p = 0 (the spectrum of (c) within 1e-6) and p = 0.5 lambda_cr (a lower
      first frequency);
-  8. prints the wall time of every phase, the peak device memory of the
-     phase-3 solve, the training phase, the gather solve and the dynamics
-     phase, the kernels' JSON line, then {"ok": true, "device": {...}}.
+  8. the design path: (a) kernels H (stvk_internal_force), I
+     (stvk_tangent_apply) and J (stvk_energy) against their plain versions
+     at DOF100K wing 0 (u: phase 3's solution, then a seeded random field,
+     each scaled to max |grad u| = 1e-2) and at the nonlinear CLI's 16x24x4
+     wing (its linear solution; a sharp-TE grid with a random field), and
+     kernel K (strain_apply_geo_vjp) at the optimize CLI's 32x40x4 and
+     24x32x2 at its four starting designs and at DOF100K wings 0-3: f64,
+     bitwise repeatable, exactly 1 launch and 1 device activity per call,
+     event times, device time (repeated and with the L2 flushed) and bound;
+     then, launch counters zeroed: (b) the nonlinear_solve CLI at its
+     defaults (with GLBs) against results/nonlinear_demo/nonlinear_report.json
+     (tip deflections 1e-5, stiffening 0.01 points, Cauchy von Mises 1e-4);
+     (c) WingNonlinear at DOF100K wing 0, 5 kPa, one load step, to a
+     Newton tolerance of 1e-7 (f64's floor there is ~3e-8); (d)
+     DifferentiableWingFEM at 32x40x4 on the optimizer's four starting
+     designs: the compliance gradient against central differences on the
+     card (chord and thickness of lanes 0 and 3, 1e-5), both CGs' TRUE f64
+     residuals; (e) the optimize_wing CLI at its record's grid (24x32x2), 5
+     steps, rows 0-4 against tpufem's own CPU run
+     (tpufem_torch/reference/optimize_wing_24x32x2_steps5.json; the record's
+     history keeps every fifth step only) and row 0 against the record, at
+     the record's rounding;
+  9. prints the wall time of every phase, the peak device memory of the
+     phase-3 solve, the training phase, the gather solve, the dynamics and
+     the design phase, the kernels' JSON line, then {"ok": true, "device":
+     {...}}.
 
 Every phase raises on failure; the script then exits nonzero and prints no
 result. Usage: python3 chip_smoke.py   (one card, no arguments)
 
-Its phases took 154 s (phase 7: 52 s) on an
+Its phases took 221 s (phase 7: 47 s, phase 8: 101 s) on an
 NVIDIA H100 80GB HBM3 at 700 W.
 """
 
@@ -344,6 +367,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += run_dynamics(dev, DOF100K, state)
     walls["7 dynamics path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kernels += run_design(dev, DOF100K, state)
+    walls["8 design path"] = time.perf_counter() - t0
     print(json.dumps({"phase_wall_s": walls}))
     print(json.dumps({"peak_device_memory_bytes": state["peak_bytes"]}))
     print(json.dumps({"kernels": kernels}))
@@ -1241,6 +1267,206 @@ def run_dynamics(dev, res, state):
                                for k in ("q", "max_abs_err", "ms", "plain_ms", "bound_us",
                                          "device_us", "device_us_cold", "share")}
                            for d in ("f64", "f32")} for s, r in geo.items()}})
+    return entries
+
+
+# ---------------------------------------------------------------- phase 8
+
+NONLINEAR_REPORT = REPO / "results" / "nonlinear_demo" / "nonlinear_report.json"
+OPT_RECORD = REPO / "results" / "wing_optimization.json"
+# tpufem's own CLI on the CPU: PYTHONPATH=. JAX_PLATFORMS=cpu python
+# scripts/optimize_wing.py --n_chord 24 --n_span 32 --n_thick 2 --steps 5
+OPT_CPU_REFERENCE = REPO / "tpufem_torch" / "reference" / "optimize_wing_24x32x2_steps5.json"
+NEWTON_TOL_DOF100K = 1e-7
+
+
+def design_counters():
+    """The launch counters of the design path's kernels, by the names of the
+    kernels' line."""
+    from tpufem_torch.fem import nonlinear as nl
+    from tpufem_torch.fem import stencil as st
+    from tpufem_torch.ops import csr_segment_sum as cs
+
+    return {"strain_apply": st.strain_apply, "csr_segment_sum": cs.csr_segment_sum,
+            "stvk_internal_force": nl.stvk_internal_force,
+            "stvk_tangent_apply": nl.stvk_tangent_apply, "stvk_energy": nl.stvk_energy,
+            "strain_apply_geo_vjp": st.strain_apply_geo_vjp}
+
+
+def require_rows(rows, ref, label):
+    """History rows against a reference's at the record's own rounding: the
+    loss within 1e-6 relative, volume ratios within 1e-4, smax within 0.01
+    MPa (one unit of the rounding each)."""
+    for r, q in zip(rows, ref, strict=True):
+        require(r["step"] == q["step"], f"{label}: step {r['step']} against {q['step']}")
+        dl = abs(r["loss"] - q["loss"]) / abs(q["loss"])
+        dv = np.abs(np.subtract(r["volume_ratio"], q["volume_ratio"])).max()
+        ds = np.abs(np.subtract(r["smax_MPa"], q["smax_MPa"])).max()
+        require(dl <= 1e-6 and dv <= 1e-4 + 1e-12 and ds <= 1e-2 + 1e-12,
+                f"{label} step {r['step']}: loss {dl:.2e}, volume {dv:.1e}, smax {ds:.2f} MPa")
+
+
+def run_design(dev, res, state):
+    """Phase 8: kernels H, I, J and K, then the nonlinear CLI against
+    tpufem's record, WingNonlinear at DOF100K, the adjoint gradient against
+    finite differences and the optimize CLI against tpufem's rows. Returns
+    the four kernels' report entries."""
+    from tpufem_torch.fem import stencil as st
+    from tpufem_torch.fem.adjoint import DifferentiableWingFEM
+    from tpufem_torch.fem.nonlinear import WingNonlinear
+    from tpufem_torch.profile_nonlinear import (
+        DESIGNS,
+        LETTERS,
+        OPT_RES,
+        REPLACES,
+        SOURCES,
+        line,
+        measure,
+        opt_start_p4,
+        shapes,
+    )
+    from tpufem_torch.scripts import nonlinear_solve, optimize_wing
+
+    # ---- 8a. kernels H, I, J and K at the shapes (b)-(e) launch them with
+    recs = {}
+    for label, fn, kw in shapes(dev, u_dof100k=st.to_grid(res, state["out"].u[:, :, :1])):
+        out = fn(label, device=dev, **kw)
+        for rec in (out.values() if fn is measure else (out,)):
+            print(line(rec))
+            recs[(rec["kernel"], label)] = rec
+
+    counters = design_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    by_case = {}
+
+    def mark(case):
+        by_case[case] = {n: c.launches - sum(v[n] for v in by_case.values())
+                         for n, c in counters.items()}
+
+    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="smoke_design_") as root:
+        root = Path(root)
+        # ---- 8b. the nonlinear CLI at its defaults against tpufem's record
+        rep, wall = cli_report(nonlinear_solve, ["--glb"], root / "nl", "nonlinear_report.json")
+        mark("16x24x4 CLI wing, linear u")
+        ref = json.loads(NONLINEAR_REPORT.read_text())
+        tip, tref = rep["tip_deflection_m"], ref["tip_deflection_m"]
+        d_nl = abs(tip["nonlinear"] - tref["nonlinear"]) / tref["nonlinear"]
+        d_lin = abs(tip["linear"] - tref["linear"]) / tref["linear"]
+        d_st = abs(tip["stiffening_pct"] - tref["stiffening_pct"])
+        vm, vref = (r["max_von_mises_pa"]["nonlinear_cauchy"] for r in (rep, ref))
+        d_vm = abs(vm - vref) / vref
+        print(f"[nonlinear] CLI defaults {rep['resolution']} ({rep['n_dof']} DOF), "
+              f"{rep['pressure_pa']:.0f} Pa, {len(rep['load_steps'])} load steps: converged "
+              f"{rep['converged']} at rel {rep['rel_residual']:.3e}; tip {tip['nonlinear']:.10f} m "
+              f"nonlinear ({d_nl:.2e} from the record, bar 1e-5), {tip['linear']:.10f} m linear "
+              f"({d_lin:.2e}), stiffening {tip['stiffening_pct']} % (record "
+              f"{tref['stiffening_pct']}, bar 0.01); max Cauchy vM {vm:.6e} Pa ({d_vm:.2e}, bar "
+              f"1e-4); Newton {rep['newton_iters']} and CG {rep['cg_iters']} iterations "
+              f"(tpufem's record: {ref['newton_iters']} / {ref['cg_iters']}; information); CLI "
+              f"wall {wall:.3f} s, solve {rep['wall_s']} s")
+        require(rep["converged"] and d_nl <= 1e-5 and d_lin <= 1e-5 and d_st <= 0.01
+                and d_vm <= 1e-4, f"nonlinear CLI against {NONLINEAR_REPORT.name}: "
+                f"{d_nl:.2e} {d_lin:.2e} {d_st:.3f} {d_vm:.2e}")
+        for name in ("nonlinear", "linear"):
+            require_glb(root / "nl" / f"wing_{name}_deformed.glb")
+
+        # ---- 8c. WingNonlinear at DOF100K, wing 0, one load step, to 1e-7:
+        # f64's floor on this grid is ~3e-8 (TRUE residual of the linear solve
+        # 3.3e-8 at any tol below it, of the Newton iterates 3.0e-8), so 1e-8
+        # is out of reach
+        t0 = time.perf_counter()
+        wn = WingNonlinear(res, state["p4"][0], pressure=PRESSURE, inner_tol=1e-10,
+                           inner_maxiter=800)
+        out = wn.solve(n_steps=1, newton_tol=NEWTON_TOL_DOF100K)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mark("DOF100K wing 0, linear u")
+        dn = float(np.linalg.norm(out.u - out.u_linear) / np.linalg.norm(out.u_linear))
+        n = by_case["DOF100K wing 0, linear u"]
+        print(f"[nonlinear] DOF100K wing 0 ({3 * wn.num_nodes} DOF), {PRESSURE:.0f} Pa, one load "
+              f"step, newton_tol {NEWTON_TOL_DOF100K}: converged {out.converged} at rel "
+              f"{out.rel_residual:.3e}; Newton "
+              f"{out.newton_iters}, CG {out.cg_iters} iterations; |u_nl - u_lin| / |u_lin| "
+              f"{dn:.3e}; wall {wall:.3f} s (set-up and the linear reference included); "
+              f"launches B {n['strain_apply']}, H {n['stvk_internal_force']}, I "
+              f"{n['stvk_tangent_apply']}, J {n['stvk_energy']}")
+        require(out.converged and 0 < dn < 1e-2, f"DOF100K nonlinear: {out.rel_residual:.3e}, "
+                                                 f"{dn:.3e}")
+
+        # ---- 8d. the adjoint gradient on the card against central differences
+        p0 = opt_start_p4()
+        t0 = time.perf_counter()
+        fem = DifferentiableWingFEM(OPT_RES, p0, tol=1e-11, maxiter=4000)
+        p = torch.tensor(p0, device=dev, requires_grad=True)
+        grad = torch.autograd.grad(fem.compliance(p, fem.solve(p)).sum(), p)[0].cpu().numpy()
+        torch.cuda.synchronize()
+        grad_s = time.perf_counter() - t0
+        cg = {k: (v["iters"], float(v["rel"].max()), float(fem.true_residual(k).max()))
+              for k, v in fem.last_cg.items()}
+        worst = 0.0
+        for b in (0, 3):
+            for i, eps in ((1, 1e-5), (3, 1e-6)):
+                vals = []
+                for sign in (1, -1):
+                    pp = p0.copy()
+                    pp[b, i] += sign * eps
+                    with torch.no_grad():
+                        vals.append(float(fem.compliance(pp, fem.solve(pp)).sum()))
+                fd = (vals[0] - vals[1]) / (2 * eps)
+                worst = max(worst, abs(grad[b, i] - fd) / abs(fd))
+        mark("32x40x4 optimizer start")
+        print(f"[adjoint] {list(OPT_RES.key)} B=4 ({3 * fem.st.num_nodes} DOF per lane), tol "
+              f"1e-11: compliance gradient in {grad_s:.3f} s (set-up included); CG (iterations, "
+              f"recurred rel, TRUE f64 rel): {cg}; chord and thickness of lanes 0 and 3 against "
+              f"central differences on the card: largest relative difference {worst:.2e} (bar "
+              f"1e-5); thickness gradients {grad[:, 3].tolist()}")
+        require(worst <= 1e-5 and bool((grad[:, 3] < 0).all()),
+                f"adjoint gradient against finite differences: {worst:.2e}")
+
+        # ---- 8e. the optimize CLI at its record's grid, 5 steps
+        t0 = time.perf_counter()
+        rc = optimize_wing.main(["--n_chord", "24", "--n_span", "32", "--n_thick", "2",
+                                 "--steps", "5", "--out", str(root / "opt.json"),
+                                 "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(rc == 0, f"optimize_wing exited {rc}")
+        mark("24x32x2 optimizer start")
+        rep = json.loads((root / "opt.json").read_text())
+        cpu_ref = json.loads(OPT_CPU_REFERENCE.read_text())
+        record = json.loads(OPT_RECORD.read_text())
+        require_rows(rep["history"], cpu_ref["history"], "optimize_wing vs tpufem's CPU run")
+        require_rows(rep["history"][:1], record["history"][:1], "optimize_wing vs the record")
+        print(f"[optimize] 24x32x2 ({rep['dof']} DOF), 4 lanes, 5 steps on {rep['device']}: rows "
+              f"0-4 equal tpufem's own CPU run ({OPT_CPU_REFERENCE.name}) and row 0 the record "
+              f"at the record's rounding; losses {[h['loss'] for h in rep['history']]}; final "
+              f"volume ratios {rep['final_volume_ratio']}, smax {rep['final_smax_MPa']} MPa; wall "
+              f"{wall:.3f} s, {wall / 5:.3f} s per step (set-up included)")
+
+    state["peak_bytes"]["design phase"] = torch.cuda.max_memory_allocated()
+    launches = {name: c.launches for name, c in counters.items()}
+    print(f"[design] kernel launches (8b-8e): {launches}; by case {by_case}")
+    for name, n in launches.items():
+        require(n > 0, f"{name} was not launched on the design path")
+    entries = []
+    for name in ("stvk_internal_force", "stvk_tangent_apply", "stvk_energy",
+                 "strain_apply_geo_vjp"):
+        shape_n = {case: n[name] for case, n in by_case.items() if n[name]}
+        main = max(shape_n, key=shape_n.get)  # the shape of most launches
+        rec = recs[(name, main)]
+        entries.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "design": DESIGNS[name],
+            "replaces": REPLACES[name], "kernel_letter": LETTERS[name],
+            "launches": launches[name], "shape": main, "launches_by_shape": shape_n,
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms")},
+            "bound_ms": rec["bound_us"] / 1e3, "bound_by": rec["bound_by"], "library_ms": None,
+            **{k: rec[k] for k in ("device_us", "device_us_cold", "share", "share_repeated",
+                                   "activities", "bytes")},
+            "shapes": {lbl: {k: r[k] for k in ("grid", "B", "max_abs_err", "ms", "plain_ms",
+                                              "bound_us", "device_us", "device_us_cold", "share")}
+                       for (kn, lbl), r in recs.items() if kn == name}})
     return entries
 
 

@@ -12,6 +12,8 @@ import torch
 
 from tpufem_torch.fem import assembly as tas
 from tpufem_torch.fem import buckling as tbk
+from tpufem_torch.fem import nonlinear as tnl
+from tpufem_torch.fem.adjoint import DifferentiableWingFEM
 from tpufem_torch.fem import stencil as tst
 from tpufem_torch.fem.driver import WingSolveConfig, solve_wing_case
 from tpufem_torch.fem.elements import tet4_setup
@@ -29,6 +31,13 @@ from tpufem_torch.ops import csr_segment_sum as tcs
 from tpufem_torch.ops import gather_scatter as tgs
 from tpufem_torch.profile_gather_operator import operator_inputs, permuted
 from tpufem_torch.profile_geometric import geometric_inputs, measure as measure_geometric
+from tpufem_torch.profile_nonlinear import (
+    KERNEL_NAMES,
+    measure as measure_nonlinear,
+    measure_vjp,
+    nl_calls,
+    nl_inputs,
+)
 from tpufem_torch.profile_solve import seeded_batch
 from tpufem_torch.sets import build_boundary_sets
 from tpufem_torch.utils.profiling import device_time
@@ -527,11 +536,11 @@ def test_stiffness_apply_rejects_bad_input(cuda, monkeypatch):
         call(grads=shifted)
 
 
-@pytest.mark.parametrize("kernel", ["B", "D", "E", "F", "G"])
+@pytest.mark.parametrize("kernel", ["B", "D", "F", "G"])
 def test_hand_kernels_refuse_requires_grad(cuda, kernel, monkeypatch):
-    """Kernels B, D, E, F and G have no backward: a CUDA tensor that
+    """Kernels B (to u), D, F and G have no backward: a CUDA tensor that
     requires_grad raises instead of coming back detached; under no_grad it
-    runs."""
+    runs. (Kernel E has one since the adjoint: test_csr_segment_sum_gradient_on_cuda.)"""
     if kernel in ("F", "G"):
         res = STRAIN_GRIDS["12x10x3-le-weld"]
         geo, u0, sig, x, free = geometric_inputs(res, 2, cuda)
@@ -692,3 +701,130 @@ def test_buckling_on_cuda_matches_cpu(cuda):
     c = tbk.WingPrestressedModal(res, p4, device=cuda).solve(n_modes=4, load_factor=4000.0)
     d = tbk.WingPrestressedModal(res, p4, device="cpu").solve(n_modes=4, load_factor=4000.0)
     np.testing.assert_allclose(c.freqs_hz, d.freqs_hz, rtol=1e-8)
+
+
+DESIGN_GRIDS = {**STRAIN_GRIDS, "dof100k": DOF100K}
+
+
+@pytest.mark.parametrize("u", ["random", "zero"])
+@pytest.mark.parametrize("grid", list(DESIGN_GRIDS))
+def test_nonlinear_kernels_match_plain(cuda, grid, u):
+    """Kernels H (stvk_internal_force), I (stvk_tangent_apply) and J
+    (stvk_energy) against their plain versions in f64 within 1e-12 of the
+    largest plain entry, one launch per call, the same bits twice (measure
+    raises otherwise), at max |grad u| = 1e-2 and at u = 0 (where I is
+    kernel B's operator)."""
+    res = DESIGN_GRIDS[grid]
+    zero = None if u == "random" else torch.zeros((3, 1, res.n_chord + 1, res.n_thick + 1,
+                                                   res.n_span + 1), dtype=torch.float64)
+    if zero is None:
+        out = measure_nonlinear(grid, res, P4[0], cuda, timed=False)
+    else:
+        geo, _, x, free = nl_inputs(res, P4[0], cuda)
+        y = tnl.stvk_tangent_apply(res, geo, zero.to(cuda), x, free, LAM, MU)
+        ref = tst.strain_apply(res, geo, x, free, LAM, MU)
+        assert (y - ref).abs().max().item() <= 1e-12 * ref.abs().max().item()
+        out = {"tangent at u = 0": None}
+    assert out
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("grid", list(DESIGN_GRIDS))
+def test_geometry_vjp_kernel_matches_plain(cuda, grid, B):
+    """Kernel K (strain_apply_geo_vjp) against its plain version in f64
+    within 1e-12, one launch per call, the same bits twice."""
+    rec = measure_vjp(grid, DESIGN_GRIDS[grid], seeded_batch(8)[:B], cuda, timed=False)
+    assert rec["rel_err"] <= 1e-12
+
+
+@pytest.mark.parametrize("kernel", list(KERNEL_NAMES))
+def test_design_kernels_are_one_device_kernel(cuda, kernel):
+    """One call on the card is exactly one device activity (kernel J's
+    fixed-order sum included)."""
+    res = MEDIUM
+    geo, u, x, free = nl_inputs(res, P4[0], cuda)
+    if kernel == "strain_apply_geo_vjp":
+        fn = lambda: tst.strain_apply_geo_vjp(res, geo, u, x, free, LAM, MU)  # noqa: E731
+    else:
+        fn = nl_calls(res, geo, u, x, free)[kernel][0]
+    r = device_time(fn, KERNEL_NAMES[kernel])
+    assert r["launches"] == 1 and r["activities"] == 1, r
+
+
+def test_design_kernels_reject_bad_input(cuda):
+    """H, I, J and K take f64 only: a CUDA f32 operand raises, as do a wrong
+    shape and an operand that wants a gradient."""
+    res = STRAIN_GRIDS["12x10x3-le-weld"]
+    geo, u, x, free = nl_inputs(res, P4[0], cuda)
+    geo32, u32, x32, free32 = tuple(t.float() for t in geo), u.float(), x.float(), free.float()
+    for call in (lambda: tnl.stvk_internal_force(res, geo32, u32, free32, LAM, MU),
+                 lambda: tnl.stvk_tangent_apply(res, geo32, u32, x32, free32, LAM, MU),
+                 lambda: tnl.stvk_energy(res, geo32, u32, free32, LAM, MU),
+                 lambda: tst.strain_apply_geo_vjp(res, geo32, u32, x32, free32, LAM, MU)):
+        with pytest.raises(TypeError, match="f64"):
+            call()
+    with pytest.raises(TypeError):
+        tnl.stvk_tangent_apply(res, geo, u, x32, free, LAM, MU)
+    with pytest.raises(ValueError):
+        tnl.stvk_internal_force(res, (geo[0][..., :1].contiguous(), geo[1]), u, free, LAM, MU)
+    with pytest.raises(ValueError, match="no backward"):
+        tnl.stvk_energy(res, geo, u.clone().requires_grad_(), free, LAM, MU)
+    g32 = (geo[0].float().requires_grad_(), geo[1].float())
+    with pytest.raises(TypeError, match="f64"):  # kernel K, B's geometry gradient, is f64 only
+        tst.strain_apply(res, g32, u32, free32, LAM, MU)
+    with pytest.raises(ValueError, match="no backward"):  # B has no backward to u
+        tst.strain_apply(res, (geo[0].clone().requires_grad_(), geo[1]),
+                         u.clone().requires_grad_(), free, LAM, MU)
+
+
+def test_csr_segment_sum_gradient_on_cuda(cuda):
+    """Kernel E with a gradient (CsrSegmentSum): the forward is the kernel's
+    bits, the backward the row gather, equal to autograd of the plain
+    version on the CPU."""
+    m, *_ = _tet_inputs(cuda, torch.float64)
+    plan = tcs.csr_plan(m.tets, m.num_nodes, cuda)
+    plan_cpu = tcs.csr_plan(m.tets, m.num_nodes, "cpu")
+    rng = np.random.default_rng(3)
+    vals = torch.as_tensor(rng.normal(size=(m.tets.size, 3)), device=cuda).requires_grad_()
+    cot = torch.as_tensor(rng.normal(size=(m.num_nodes, 3)), device=cuda)
+    before = tcs.csr_segment_sum.launches
+    out = tcs.csr_segment_sum(vals, plan)
+    assert tcs.csr_segment_sum.launches == before + 1 and out.requires_grad
+    with torch.no_grad():
+        assert torch.equal(out, tcs.csr_segment_sum(vals, plan))
+    (g,) = torch.autograd.grad(out, vals, cot)
+    vc = vals.detach().cpu().requires_grad_()
+    (gc,) = torch.autograd.grad(tcs.csr_segment_sum_plain(vc, plan_cpu), vc, cot.cpu())
+    assert torch.equal(g.cpu(), gc)
+
+
+def test_adjoint_gradient_on_cuda_matches_cpu(cuda):
+    """DifferentiableWingFEM on the card (kernel B forward, K backward, E's
+    gradient in the loads and the recovery) gives the CPU's gradients of the
+    compliance and of the smooth-max von Mises."""
+    res = WingMeshResolution(8, 12, 2, 0.006, "le")
+    grads = []
+    for dev in (cuda, "cpu"):
+        fem = DifferentiableWingFEM(res, P4, tol=1e-11, maxiter=4000, device=dev)
+        p = torch.tensor(P4, device=dev, requires_grad=True)
+        u = fem.solve(p)
+        obj = fem.compliance(p, u).sum() + 1e-7 * fem.smooth_max_vm(p, u).sum()
+        grads.append(torch.autograd.grad(obj, p)[0].cpu().numpy())
+    np.testing.assert_allclose(grads[0], grads[1], rtol=1e-7)
+    assert tst.strain_apply_geo_vjp.launches > 0
+
+
+def test_nonlinear_on_cuda_matches_cpu(cuda):
+    """A small WingNonlinear on the card (kernels H, I, J in the Newton loop)
+    agrees with the CPU's."""
+    res = WingMeshResolution(8, 10, 2, 0.006, "le")
+    p4 = (1.6, 0.3, 0.0, 0.08)
+    counts = [tnl.stvk_internal_force.launches, tnl.stvk_tangent_apply.launches,
+              tnl.stvk_energy.launches]
+    a = tnl.WingNonlinear(res, p4, pressure=3e5, device=cuda).solve(n_steps=2)
+    b = tnl.WingNonlinear(res, p4, pressure=3e5, device="cpu").solve(n_steps=2)
+    assert a.converged and b.converged
+    assert np.linalg.norm(a.u - b.u) <= 1e-7 * np.linalg.norm(b.u)
+    assert all(n > c for n, c in zip([tnl.stvk_internal_force.launches,
+                                      tnl.stvk_tangent_apply.launches,
+                                      tnl.stvk_energy.launches], counts))

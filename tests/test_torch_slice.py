@@ -169,7 +169,9 @@ def test_port_imports_without_jax():
         "tpufem_torch.app", "tpufem_torch.pipeline.validate", "tpufem_torch.profile_geometric",
         "tpufem_torch.scripts.modal_analysis", "tpufem_torch.scripts.buckling_analysis",
         "tpufem_torch.scripts.prestress_sweep", "tpufem_torch.scripts.validate_dataset",
-        "tpufem_torch.scripts.repair_geometry_glb",
+        "tpufem_torch.scripts.repair_geometry_glb", "tpufem_torch.fem.nonlinear",
+        "tpufem_torch.fem.adjoint", "tpufem_torch.scripts.nonlinear_solve",
+        "tpufem_torch.scripts.optimize_wing", "tpufem_torch.profile_nonlinear",
     ]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -183,10 +185,13 @@ def test_port_imports_without_jax():
 
 
 @pytest.mark.parametrize("entry", ["WingStencilT", "solve_wing_case", "Trainer",
-                                   "Trainer.load_checkpoint"])
+                                   "Trainer.load_checkpoint", "WingNonlinear",
+                                   "DifferentiableWingFEM"])
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
     """The port's entry points run on the card unless the caller asks for the
     CPU: with no CUDA device, the default raises instead of falling back."""
+    from tpufem_torch.fem.adjoint import DifferentiableWingFEM
+    from tpufem_torch.fem.nonlinear import WingNonlinear
     from tpufem_torch.mesher import structured_wing_mesh
     from tpufem_torch.models.train import TrainConfig, Trainer
     from tpufem_torch.sets import build_boundary_sets
@@ -198,6 +203,8 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
         "solve_wing_case": lambda: tdrv.solve_wing_case(mesh, build_boundary_sets(mesh)),
         "Trainer": lambda: Trainer(TrainConfig()),
         "Trainer.load_checkpoint": lambda: Trainer.load_checkpoint(tmp_path / "none.pt"),
+        "WingNonlinear": lambda: WingNonlinear(res, P4[0]),
+        "DifferentiableWingFEM": lambda: DifferentiableWingFEM(res, P4[:1]),
     }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -250,7 +250,7 @@ class GridBlockSolver:
         self._lam64, self._mu64 = lame_params(self.material)
         self._free64 = self.st.free64
         self._mstate = None
-        self._geo64 = None
+        self._X64 = self._geo64 = None
         self._block = None
 
     # ---- device-side pieces -------------------------------------------------
@@ -261,7 +261,7 @@ class GridBlockSolver:
             return
         p4q = np.tile(self.p4[None], (q, 1))
         self._mstate = self.st.mg_setup(p4q, self.material)
-        _, self._geo64 = self.st.geometry64(p4q)
+        self._X64, self._geo64 = self.st.geometry64(p4q)
         self._block = q
 
     def _ops(self):

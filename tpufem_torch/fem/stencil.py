@@ -12,7 +12,9 @@ Dirichlet (root, j = 0) by masking with identity on fixed dofs.
 ``strain_apply`` is the operator of the CG and of every V-cycle smoother; on a
 CUDA tensor it is one launch of the hand-written kernel ``csrc/strain_apply.cu``
 (kernel B, welds and Dirichlet wrap included), on a CPU tensor it runs
-``strain_apply_plain``.
+``strain_apply_plain``. Where the geometry requires a gradient (the adjoint of
+fem.adjoint), the CUDA launch goes through ``StrainApplyGeo``, whose backward
+is kernel K (``csrc/strain_geo_vjp.cu``, ``strain_apply_geo_vjp``).
 """
 
 from __future__ import annotations
@@ -269,10 +271,14 @@ def strain_apply(res: WingMeshResolution, geo, u, free, lam: float, mu: float):
     A CPU tensor takes strain_apply_plain. A CUDA tensor launches kernel B,
     which computes the whole function, mask, welds and Dirichlet identity
     included, in one launch; inputs it does not take raise
-    (check_strain_apply_inputs). lam and mu are Python floats.
+    (check_strain_apply_inputs). Where g or vol requires a gradient, the
+    launch goes through StrainApplyGeo (backward: kernel K). lam and mu are
+    Python floats.
     """
     if not u.is_cuda:
         return strain_apply_plain(res, geo, u, free, lam, mu)
+    if wants_grad(geo[0]) or wants_grad(geo[1]):
+        return StrainApplyGeo.apply(res, geo[0], geo[1], u, free, lam, mu)
     check_strain_apply_inputs(res, geo, u, free)
     g, vol = geo
     _, B, NI, NK, NJ = u.shape
@@ -288,6 +294,94 @@ def strain_apply(res: WingMeshResolution, geo, u, free, lam: float, mu: float):
 
 
 strain_apply.launches = 0
+
+
+def strain_apply_geo_vjp_plain(res: WingMeshResolution, geo, u, w, free, lam, mu):
+    """Plain PyTorch version of strain_apply_geo_vjp: (gbar, volbar), the
+    cotangents of g and vol of w . strain_apply(geo, u) at fixed u, written
+    out per Kuhn tet (kernel K's formulas)."""
+    g, vol = geo
+    uc = _corners(weld_spread(res, u * free))
+    wc = _corners(weld_spread(res, w * free))
+    eye = torch.eye(3, dtype=u.dtype, device=u.device).reshape(3, 3, 1, 1, 1, 1)
+    gbars, volbars = [], []
+    for t in range(6):
+        Hu = sum(g[t, a][:, None] * uc[_KUHN_TETS[t, a]][None, :] for a in range(4))
+        Hw = sum(g[t, a][:, None] * wc[_KUHN_TETS[t, a]][None, :] for a in range(4))
+        eu, ew = 0.5 * (Hu + Hu.transpose(0, 1)), 0.5 * (Hw + Hw.transpose(0, 1))
+        su = 2.0 * mu * eu + lam * (eu[0, 0] + eu[1, 1] + eu[2, 2]) * eye
+        sw = 2.0 * mu * ew + lam * (ew[0, 0] + ew[1, 1] + ew[2, 2]) * eye
+        volbars.append((su * ew).sum(dim=(0, 1)))
+        gbars.append(torch.stack([
+            vol[t] * ((sw * uc[_KUHN_TETS[t, a]][None, :]).sum(dim=1)
+                      + (su * wc[_KUHN_TETS[t, a]][None, :]).sum(dim=1)) for a in range(4)]))
+    return torch.stack(gbars), torch.stack(volbars)
+
+
+def strain_apply_geo_vjp(res: WingMeshResolution, geo, u, w, free, lam: float, mu: float):
+    """(gbar (6,4,3,B,nc,nt,ns), volbar (6,B,nc,nt,ns)): the VJP of
+    strain_apply(geo, u) with respect to geo = (g, vol) for the cotangent w,
+    at fixed u. Per Kuhn tet, with us = S(u * free), ws = S(w * free):
+    gbar[t,a] = V (sigma(eps_w) us_a + sigma(eps_u) ws_a), volbar[t] =
+    sigma(eps_u) : eps_w.
+
+    A CPU tensor takes strain_apply_geo_vjp_plain; a CUDA f64 tensor launches
+    kernel K (a thread per lane and cell, no scatter); other inputs raise."""
+    if not u.is_cuda:
+        return strain_apply_geo_vjp_plain(res, geo, u, w, free, lam, mu)
+    check_f64_grid_operands("K (strain_apply_geo_vjp)", res, geo, u, free, w=w)
+    g, vol = geo
+    gbar, volbar = torch.empty_like(g), torch.empty_like(vol)
+    _, B, NI, NK, NJ = u.shape
+    status = load_kernels().tpufem_strain_geo_vjp_f64(
+        g.data_ptr(), vol.data_ptr(), u.data_ptr(), w.data_ptr(), free.data_ptr(),
+        gbar.data_ptr(), volbar.data_ptr(), B, NI, NK, NJ, int(res.te_floor_frac == 0.0),
+        float(lam), float(mu), torch.cuda.current_stream(u.device).cuda_stream)
+    check(status, "strain_apply_geo_vjp")
+    strain_apply_geo_vjp.launches += 1
+    return gbar, volbar
+
+
+strain_apply_geo_vjp.launches = 0
+
+
+def check_f64_grid_operands(name: str, res: WingMeshResolution, geo, u, free, **fields) -> None:
+    """Raise unless the f64-only grid kernels (H, I, J, K) take these inputs
+    as they are: check_grid_operands with g, vol, the root mask free and every
+    extra grid field in `fields` shaped like u, all f64."""
+    if u.dtype != torch.float64:
+        raise TypeError(f"kernel {name} takes f64 only, got {u.dtype}")
+    g, vol = geo
+    want = grid_shapes(res, u.shape[1] if u.dim() == 5 else 0)
+    check_grid_operands(name, res, u, {
+        "g": (g, want["g"]), "vol": (vol, want["vol"]), "free": (free, want["free"]),
+        **{k: (t, tuple(u.shape)) for k, t in fields.items()}})
+
+
+class StrainApplyGeo(torch.autograd.Function):
+    """strain_apply on the card with a gradient to the geometry: forward is
+    kernel B on the detached g and vol, backward is kernel K. u is held fixed
+    (the adjoint differentiates F(p) = K(p) u - b(p) at fixed u), so a u that
+    requires a gradient raises rather than get a wrong or missing one; free,
+    lam and mu get none. f64 only, as kernel K."""
+
+    @staticmethod
+    def forward(ctx, res, g, vol, u, free, lam, mu):
+        if u.requires_grad:
+            raise ValueError("kernel B has no backward to u: the CUDA displacement "
+                             "requires_grad (only the geometry's gradient is kernel K's)")
+        if u.dtype != torch.float64:
+            raise TypeError(f"kernel K, the geometry's gradient, takes f64 only, got {u.dtype}")
+        ctx.res, ctx.lam, ctx.mu = res, lam, mu
+        ctx.save_for_backward(g, vol, u, free)
+        return strain_apply(res, (g, vol), u, free, lam, mu)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        g, vol, u, free = ctx.saved_tensors
+        gbar, volbar = strain_apply_geo_vjp(ctx.res, (g, vol), u, grad_y.contiguous(), free,
+                                            ctx.lam, ctx.mu)
+        return None, gbar, volbar, None, None, None, None
 
 
 def weld_spread(res: WingMeshResolution, u):

@@ -69,24 +69,8 @@ def csr_segment_sum_plain(vals: torch.Tensor, plan: CsrPlan) -> torch.Tensor:
     return out.index_add_(0, plan.seg, vals[plan.order])
 
 
-def csr_segment_sum(vals: torch.Tensor, plan: CsrPlan) -> torch.Tensor:
-    """Sum the rows of vals (R, C), f32 or f64, into (plan.num_segments, C)
-    in the plan's fixed order. A CPU tensor takes the plain version; a CUDA
-    tensor launches kernel E, or raises. `plan` is read by its field names
-    (order, starts, seg, num_segments), so a tuple that carries a CsrPlan's
-    fields among others (fem.assembly.IncidencePlan) serves as one."""
-    if vals.dim() != 2 or vals.shape[0] != plan.order.shape[0]:
-        raise ValueError(f"csr_segment_sum: vals {tuple(vals.shape)} against a plan of "
-                         f"{plan.order.shape[0]} rows")
-    if not vals.is_cuda:
-        return csr_segment_sum_plain(vals, plan)
-    if vals.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"kernel E takes f32 or f64 values, got {vals.dtype}")
-    if plan.order.device != vals.device or plan.starts.device != vals.device:
-        raise ValueError("kernel E: the plan lies on another device than the values")
-    if wants_grad(vals):
-        raise ValueError("kernel E has no backward: the CUDA values require_grad (the plain "
-                         "version on the CPU differentiates)")
+def _launch(vals: torch.Tensor, plan) -> torch.Tensor:
+    """Kernel E on CUDA values the wrapper has checked."""
     vals = vals.contiguous()
     N, C = plan.num_segments, vals.shape[1]
     out = torch.empty((N, C), dtype=vals.dtype, device=vals.device)
@@ -97,6 +81,49 @@ def csr_segment_sum(vals: torch.Tensor, plan: CsrPlan) -> torch.Tensor:
     check(status, "csr_segment_sum")
     csr_segment_sum.launches += 1
     return out
+
+
+class CsrSegmentSum(torch.autograd.Function):
+    """Kernel E with a gradient: the backward gives each row its segment's
+    cotangent, grad_vals[plan.order[r]] = grad_out[plan.seg[r]]. That row
+    gather is plain torch indexing: tpufem's segment_sum VJP is an XLA gather,
+    and it runs once per backward (the adjoint's loads and stress recovery),
+    not per iteration."""
+
+    @staticmethod
+    def forward(ctx, vals, plan):
+        ctx.plan = plan
+        return _launch(vals, plan)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        plan = ctx.plan
+        grad_vals = torch.empty((plan.order.shape[0], grad_out.shape[1]), dtype=grad_out.dtype,
+                                device=grad_out.device)
+        grad_vals[plan.order.long()] = grad_out[plan.seg]
+        return grad_vals, None
+
+
+def csr_segment_sum(vals: torch.Tensor, plan: CsrPlan) -> torch.Tensor:
+    """Sum the rows of vals (R, C), f32 or f64, into (plan.num_segments, C)
+    in the plan's fixed order. A CPU tensor takes the plain version; a CUDA
+    tensor launches kernel E, or raises; where it requires a gradient, through
+    CsrSegmentSum (the same launch, and a row gather backward). `plan` is read
+    by its field names (order, starts, seg, num_segments), so a tuple that
+    carries a CsrPlan's fields among others (fem.assembly.IncidencePlan)
+    serves as one."""
+    if vals.dim() != 2 or vals.shape[0] != plan.order.shape[0]:
+        raise ValueError(f"csr_segment_sum: vals {tuple(vals.shape)} against a plan of "
+                         f"{plan.order.shape[0]} rows")
+    if not vals.is_cuda:
+        return csr_segment_sum_plain(vals, plan)
+    if vals.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"kernel E takes f32 or f64 values, got {vals.dtype}")
+    if plan.order.device != vals.device or plan.starts.device != vals.device:
+        raise ValueError("kernel E: the plan lies on another device than the values")
+    if wants_grad(vals):
+        return CsrSegmentSum.apply(vals, plan)
+    return _launch(vals, plan)
 
 
 csr_segment_sum.launches = 0

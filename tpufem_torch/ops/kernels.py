@@ -65,6 +65,16 @@ _SIGNATURES = {
     # (g, vol, sig, u, free, y, B, NI, NK, NJ, weld_te, stream)
     "tpufem_geom_apply_f32": [_P] * 6 + [ctypes.c_int] * 5 + [_P],
     "tpufem_geom_apply_f64": [_P] * 6 + [ctypes.c_int] * 5 + [_P],
+    # (g, vol, u, free, y, B, NI, NK, NJ, weld_te, lam, mu, stream)
+    "tpufem_stvk_force_f64": [_P] * 5 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2 + [_P],
+    # (g, vol, x, u, free, y, B, NI, NK, NJ, weld_te, lam, mu, stream)
+    "tpufem_stvk_tangent_f64": [_P] * 6 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2 + [_P],
+    # (B, NI, NK, NJ) -> the number of per-block partials
+    "tpufem_stvk_energy_blocks": [ctypes.c_int] * 4,
+    # (g, vol, u, free, partial, ticket, out, B, NI, NK, NJ, weld_te, lam, mu, stream)
+    "tpufem_stvk_energy_f64": [_P] * 7 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2 + [_P],
+    # (g, vol, u, w, free, gbar, volbar, B, NI, NK, NJ, weld_te, lam, mu, stream)
+    "tpufem_strain_geo_vjp_f64": [_P] * 7 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2 + [_P],
     # (vals, order, starts, out, N, C, stream)
     "tpufem_csr_segment_sum_f32": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
     "tpufem_csr_segment_sum_f64": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],

@@ -2,8 +2,10 @@
 ``python -m tpufem_torch.scripts.<name>``: the dataset pipeline
 (generate_geometry_dataset -> generate_mesh_dataset -> generate_fem_dataset,
 validate_dataset, repair_geometry_glb), the surrogate's train_gnn /
-inference_gnn, and the dynamics analyses modal_analysis, buckling_analysis
-and prestress_sweep. Each has a ``main(argv)``."""
+inference_gnn, the dynamics analyses modal_analysis, buckling_analysis
+and prestress_sweep, and the design analyses nonlinear_solve (large-deflection
+statics) and optimize_wing (adjoint-gradient sizing). Each has a
+``main(argv)``."""
 
 import torch
 
