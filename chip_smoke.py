@@ -76,8 +76,10 @@ trained checkpoint exists). Along the way:
   8. the design path: (a) kernels H (stvk_internal_force), I
      (stvk_tangent_apply) and J (stvk_energy) against their plain versions
      at DOF100K wing 0 (u: phase 3's solution, then a seeded random field,
-     each scaled to max |grad u| = 1e-2) and at the nonlinear CLI's 16x24x4
-     wing (its linear solution; a sharp-TE grid with a random field), and
+     each scaled to max |grad u| = 1e-2), at the nonlinear CLI's 16x24x4
+     wing (its linear solution; a sharp-TE grid with a random field) and at
+     the edges of H's and I's tiles (13x37x2 and 64x80x6, sharp TE, random
+     fields; each record names the tile its launch took), and
      kernel K (strain_apply_geo_vjp) at the optimize CLI's 32x40x4 and
      24x32x2 at its four starting designs and at DOF100K wings 0-3: f64,
      bitwise repeatable, exactly 1 launch and 1 device activity per call,
@@ -103,7 +105,7 @@ trained checkpoint exists). Along the way:
 Every phase raises on failure; the script then exits nonzero and prints no
 result. Usage: python3 chip_smoke.py   (one card, no arguments)
 
-Its phases took 221 s (phase 7: 47 s, phase 8: 101 s) on an
+Its phases took 169 s (phase 7: 34 s, phase 8: 63 s) on an
 NVIDIA H100 80GB HBM3 at 700 W.
 """
 
@@ -1327,7 +1329,8 @@ def run_design(dev, res, state):
     )
     from tpufem_torch.scripts import nonlinear_solve, optimize_wing
 
-    # ---- 8a. kernels H, I, J and K at the shapes (b)-(e) launch them with
+    # ---- 8a. kernels H, I, J and K at the shapes (b)-(e) launch them with, and
+    # H, I and J at the edges of the tiles
     recs = {}
     for label, fn, kw in shapes(dev, u_dof100k=st.to_grid(res, state["out"].u[:, :, :1])):
         out = fn(label, device=dev, **kw)

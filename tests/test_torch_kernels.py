@@ -32,7 +32,10 @@ from tpufem_torch.ops import gather_scatter as tgs
 from tpufem_torch.profile_gather_operator import operator_inputs, permuted
 from tpufem_torch.profile_geometric import geometric_inputs, measure as measure_geometric
 from tpufem_torch.profile_nonlinear import (
+    EDGE_RES,
+    EDGE_ROWS_RES,
     KERNEL_NAMES,
+    launch_tile,
     measure as measure_nonlinear,
     measure_vjp,
     nl_calls,
@@ -703,7 +706,17 @@ def test_buckling_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(c.freqs_hz, d.freqs_hz, rtol=1e-8)
 
 
-DESIGN_GRIDS = {**STRAIN_GRIDS, "dof100k": DOF100K}
+# with 13x37x5-ragged and 12x10x3-le-weld, the edges of H's and I's tiles:
+# node counts that fill no tile evenly, welded TEs, nt = 2 (EDGE_TILES)
+DESIGN_GRIDS = {**STRAIN_GRIDS, "13x37x2-sharp-te": EDGE_RES,
+                "64x24x2-sharp-te": WingMeshResolution(64, 24, 2, 0.0, "le"),
+                "64x80x6-sharp-te": EDGE_ROWS_RES, "dof100k": DOF100K}
+# the tile each edge grid must take on the card: (owned node columns, chord
+# rows), 0 for more than one chord row that does not divide the grid's; the
+# span tile is left partly empty at all three, the last chord tile (its last
+# row the welded trailing edge) at 64x24x2 and 64x80x6
+EDGE_TILES = {"13x37x2-sharp-te": (8, 1), "64x24x2-sharp-te": (8, 0),
+              "64x80x6-sharp-te": (16, 0)}
 
 
 @pytest.mark.parametrize("u", ["random", "zero"])
@@ -711,14 +724,26 @@ DESIGN_GRIDS = {**STRAIN_GRIDS, "dof100k": DOF100K}
 def test_nonlinear_kernels_match_plain(cuda, grid, u):
     """Kernels H (stvk_internal_force), I (stvk_tangent_apply) and J
     (stvk_energy) against their plain versions in f64 within 1e-12 of the
-    largest plain entry, one launch per call, the same bits twice (measure
-    raises otherwise), at max |grad u| = 1e-2 and at u = 0 (where I is
-    kernel B's operator)."""
+    largest plain entry (or of error_scales where that is larger), one
+    launch per call, the same bits twice (measure raises otherwise), and H
+    and I one device activity per call, at max |grad u| = 1e-2; and at u = 0
+    (where I is kernel B's operator). The edge grids take the tiles they are
+    named for on this card (EDGE_TILES)."""
     res = DESIGN_GRIDS[grid]
+    if grid in EDGE_TILES:
+        NI, NJ = res.n_chord + 1, res.n_span + 1
+        own_j, own_i = launch_tile(res)
+        want_j, want_i = EDGE_TILES[grid]
+        assert own_j == want_j and NJ % own_j != 0, (own_j, own_i)
+        assert own_i == want_i if want_i else own_i > 1 and NI % own_i != 0, (own_j, own_i)
     zero = None if u == "random" else torch.zeros((3, 1, res.n_chord + 1, res.n_thick + 1,
                                                    res.n_span + 1), dtype=torch.float64)
     if zero is None:
         out = measure_nonlinear(grid, res, P4[0], cuda, timed=False)
+        calls = nl_calls(res, *nl_inputs(res, P4[0], cuda))
+        for name in ("stvk_internal_force", "stvk_tangent_apply"):
+            r = device_time(calls[name][0], KERNEL_NAMES[name])
+            assert r["launches"] == 1 and r["activities"] == 1, (name, r)
     else:
         geo, _, x, free = nl_inputs(res, P4[0], cuda)
         y = tnl.stvk_tangent_apply(res, geo, zero.to(cuda), x, free, LAM, MU)

@@ -1,7 +1,8 @@
 """Port parity: the TL-StVK grid functions of tpufem_torch.fem.nonlinear (the
 plain versions kernels H, I and J are held to on the card) against
 tpufem.fem.nonlinear, on the CPU at tpufem's test grid 8x10x2 (LE spacing, TE
-floor) and its sharp-TE variant, on the same seeded inputs.
+floor) and its sharp-TE variant, on the same seeded inputs; the force and the
+tangent also at the edges of kernels H's and I's tiles (EDGE_GRIDS).
 
 - stvk_internal_force and the tangent (tpufem's jax.jvp against the port's
   torch.func.jvp) within 1e-12 of the largest entry; the energy within 1e-13
@@ -30,15 +31,22 @@ from tpufem_torch.fem import stencil as tst
 from tpufem_torch.mesher import WingMeshResolution
 
 PARAMS = (1.2, 0.35, 10.0, 0.10)
-GRIDS = {"le": 0.006, "sharp-te": 0.0}  # te_floor_frac of the 8x10x2 grid
+# (n_chord, n_span, n_thick, te_floor_frac): tpufem's test grid 8x10x2 and its
+# sharp-TE variant; EDGE_GRIDS are the edges of kernels H's and I's tiles on
+# the card (node counts that fill no tile evenly, a welded TE, nt = 2), where
+# the plain versions those kernels are held to are held to tpufem here
+GRIDS = {"le": (8, 10, 2, 0.006), "sharp-te": (8, 10, 2, 0.0)}
+EDGE_GRIDS = {"13x37x2-sharp-te": (13, 37, 2, 0.0), "13x37x5-sharp-te": (13, 37, 5, 0.0),
+              "12x10x3-le": (12, 10, 3, 0.006), "64x24x2-sharp-te": (64, 24, 2, 0.0),
+              "64x80x6-sharp-te": (64, 80, 6, 0.0)}
 LAM, MU = jlame(JMaterial())
 
 
 @pytest.fixture(scope="module", params=list(GRIDS))
 def grid(request):
     """(port res, tpufem res, port geo, tpufem geo, root mask free (1,1,1,1,NJ))."""
-    te = GRIDS[request.param]
-    res, jres = WingMeshResolution(8, 10, 2, te, "le"), JRes(8, 10, 2, te, "le")
+    nc, ns, nt, te = {**GRIDS, **EDGE_GRIDS}[request.param]
+    res, jres = WingMeshResolution(nc, ns, nt, te, "le"), JRes(nc, ns, nt, te, "le")
     p4 = np.asarray(PARAMS, np.float64)[None]
     geo = tst.cell_geometry(res, tst.nodes_grid(res, torch.as_tensor(p4), torch.float64))
     jgeo = jst.cell_geometry(jres, jst.nodes_grid(jres, jnp.asarray(p4), jnp.float64))
@@ -47,9 +55,9 @@ def grid(request):
     return res, jres, geo, jgeo, free
 
 
-def _field(free, seed, scale):
+def _field(res, free, seed, scale):
     """A seeded random grid field (3,1,NI,NK,NJ), zero on the root rows."""
-    shape = (3, 1, 9, 3, 11)
+    shape = (3, 1, res.n_chord + 1, res.n_thick + 1, res.n_span + 1)
     return np.random.default_rng(seed).standard_normal(shape) * scale * free
 
 
@@ -64,18 +72,20 @@ def _close(got, ref, bar):
     assert err <= bar * np.abs(ref).max(), (err, np.abs(ref).max())
 
 
+@pytest.mark.parametrize("grid", [*GRIDS, *EDGE_GRIDS], indirect=True)
 @pytest.mark.parametrize("scale", [1e-7, 1e-3])
 def test_internal_force_matches_tpufem(grid, scale):
     res, jres, geo, jgeo, free = grid
-    u = _field(free, 1, scale)
+    u = _field(res, free, 1, scale)
     ref = jnl.stvk_internal_force(jres, jgeo, jnp.asarray(u), jnp.asarray(free), LAM, MU)
     got = tnl.stvk_internal_force(res, geo, *_port(u, free), LAM, MU)
     _close(got.numpy(), ref, 1e-12)
 
 
+@pytest.mark.parametrize("grid", [*GRIDS, *EDGE_GRIDS], indirect=True)
 def test_tangent_matches_tpufem_jvp(grid):
     res, jres, geo, jgeo, free = grid
-    u, x = _field(free, 2, 1e-3), _field(free, 3, 1.0)
+    u, x = _field(res, free, 2, 1e-3), _field(res, free, 3, 1.0)
 
     def fint(v):
         return jnl.stvk_internal_force(jres, jgeo, v, jnp.asarray(free), LAM, MU)
@@ -87,7 +97,7 @@ def test_tangent_matches_tpufem_jvp(grid):
 
 def test_energy_matches_tpufem(grid):
     res, jres, geo, jgeo, free = grid
-    u = _field(free, 4, 1e-3)
+    u = _field(res, free, 4, 1e-3)
     ref = float(jnl.stvk_energy(jres, jgeo, jnp.asarray(u), jnp.asarray(free), LAM, MU))
     got = tnl.stvk_energy(res, geo, *_port(u, free), LAM, MU)
     assert got.dim() == 0
@@ -96,7 +106,7 @@ def test_energy_matches_tpufem(grid):
 
 def test_cauchy_stress_matches_tpufem(grid):
     res, jres, geo, jgeo, free = grid
-    u = _field(free, 5, 1e-3)
+    u = _field(res, free, 5, 1e-3)
     ref = jnl.stvk_cauchy_stress(jres, jgeo, jnp.asarray(u), jnp.asarray(free), LAM, MU)
     got = tnl.stvk_cauchy_stress(res, geo, *_port(u, free), LAM, MU)
     _close(got.numpy(), ref, 1e-12)
@@ -106,7 +116,7 @@ def test_internal_force_is_energy_gradient(grid):
     """f_int == grad_u W on free rows: the hyperelastic consistency that
     makes the tangent symmetric."""
     res, _, geo, _, free = grid
-    u, fr = _port(_field(free, 6, 1e-2), free)
+    u, fr = _port(_field(res, free, 6, 1e-2), free)
     u.requires_grad_()
     (gW,) = torch.autograd.grad(tnl.stvk_energy(res, geo, u, fr, LAM, MU), u)
     f = tnl.stvk_internal_force(res, geo, u.detach(), fr, LAM, MU)
@@ -118,7 +128,8 @@ def test_tangent_symmetry_and_fd(grid):
     """<v, K_T w> == <w, K_T v>, and the tangent matches a central finite
     difference of the force."""
     res, _, geo, _, free = grid
-    u, v, w, fr = _port(_field(free, 7, 1e-2), _field(free, 8, 1.0), _field(free, 9, 1.0), free)
+    u, v, w, fr = _port(_field(res, free, 7, 1e-2), _field(res, free, 8, 1.0),
+                        _field(res, free, 9, 1.0), free)
     Kv = tnl.stvk_tangent_apply(res, geo, u, v, fr, LAM, MU)
     Kw = tnl.stvk_tangent_apply(res, geo, u, w, fr, LAM, MU)
     a, b = float((w * Kv).sum()), float((v * Kw).sum())
@@ -132,7 +143,7 @@ def test_tangent_symmetry_and_fd(grid):
 def test_small_load_reduces_to_linear(grid):
     """f_int(u) -> K u as |u| -> 0: the relative remainder is O(|u|)."""
     res, _, geo, _, free = grid
-    u, fr = _port(_field(free, 10, 1.0), free)
+    u, fr = _port(_field(res, free, 10, 1.0), free)
     errs = []
     for eps in (1e-6, 1e-7):
         f_nl = tnl.stvk_internal_force(res, geo, u * eps, fr, LAM, MU)
@@ -145,7 +156,7 @@ def test_small_load_reduces_to_linear(grid):
 def test_tangent_at_zero_is_the_linear_operator(grid):
     """K_T(0) x == strain_apply(x) to rounding: what kernel I must give at u = 0."""
     res, _, geo, _, free = grid
-    x, fr = _port(_field(free, 11, 1.0), free)
+    x, fr = _port(_field(res, free, 11, 1.0), free)
     got = tnl.stvk_tangent_apply(res, geo, torch.zeros_like(x), x, fr, LAM, MU)
     _close(got.numpy(), tst.strain_apply_plain(res, geo, x, fr, LAM, MU).numpy(), 1e-13)
 
@@ -153,7 +164,7 @@ def test_tangent_at_zero_is_the_linear_operator(grid):
 def test_cauchy_reduces_to_linear_stress(grid):
     """sigma(u) -> the linear element stress as |u| -> 0."""
     res, _, geo, _, free = grid
-    u, fr = _port(_field(free, 12, 1e-7), free)
+    u, fr = _port(_field(res, free, 12, 1e-7), free)
     sig_nl = tnl.stvk_cauchy_stress(res, geo, u, fr, LAM, MU)
     sig_lin = tbk.element_stress_plain(res, geo, u, LAM, MU)
     assert float((sig_nl - sig_lin).norm() / sig_lin.norm()) < 1e-3

@@ -50,7 +50,6 @@ template <typename T>
 struct geom_apply_body {
   static constexpr int kPlanes = 22;  // 4 x 3 gradients, the volume, 3 x 3 stresses
   static constexpr bool kIdentity = false;
-  static constexpr int kFields = 1;
 
   __device__ __forceinline__ void operator()(int tet, const T* sg, int plane,
                                              const T (&U)[8][3], T (&lo)[4][3],

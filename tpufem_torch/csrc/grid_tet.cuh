@@ -1,5 +1,5 @@
 // The structured wing grid's cell layout, shared by kernels B (strain_apply),
-// F (element_stress) and G (geom_apply).
+// F (element_stress), G (geom_apply), H (stvk_force) and I (stvk_tangent).
 //
 // Every hex cell (ci, ck, cj) of the grid is cut into the 6 Kuhn tets of the
 // unit hex. Hex corner q = 0..7 sits at node (ci + corner_di(q), ck +
@@ -28,6 +28,20 @@ __device__ __forceinline__ int corner_dk(int q) { return q >= 4; }
 
 __device__ __forceinline__ bool weld_row(int i, int NI, int weld_te) {
   return i == 0 || (weld_te && i == NI - 1);
+}
+
+// The node layer a field is read from at node (i, k): k = 0 on weld rows
+// (the weld spread)
+__device__ __forceinline__ int weld_k(int i, int k, int NI, int weld_te) {
+  return weld_row(i, NI, weld_te) ? 0 : k;
+}
+
+// The value stored at a node whose summed force is f: masked by the root mask
+// fr and, with the Dirichlet identity, plus u * (1 - fr), u the node's value
+// of the field the identity stores
+template <bool kIdentity, typename T>
+__device__ __forceinline__ T masked_store(T f, T fr, T u) {
+  return kIdentity ? f * fr + u * (T(1) - fr) : f * fr;
 }
 
 }  // namespace grid_tet

@@ -1,6 +1,5 @@
 // The cell-centric walk over the structured wing grid that kernels B
-// (strain_apply), G (geom_apply), H (stvk_force) and I (stvk_tangent) share:
-// one launch computes
+// (strain_apply) and G (geom_apply) share: one launch computes
 //
 //   y = R( K( S(u * free) ) ) * free  [+ u * (1 - free), the Dirichlet identity]
 //
@@ -37,18 +36,15 @@
 //     by a warp shuffle; the two chord neighbours through shared memory, one
 //     barrier per node layer. Two runs give the same bits.
 //   - Weld rows: the writer keeps the thickness sum in registers and stores
-//     it at k = 0 after the last layer.
+//     it at k = 0 after the last layer (grid_tet.cuh: weld_k, masked_store).
 // Every index is 32-bit; the wrappers check that every operand has fewer than
 // 2^31 elements.
 //
 // A body is a type with
 //   static constexpr int kPlanes;     // 13 (g, vol) or 22 (g, vol, sig)
 //   static constexpr bool kIdentity;  // store u * (1 - free) on masked rows
-//   static constexpr int kFields;     // 1, or 2: a second grid field u2
 //   void operator()(int tet, const T* sg, int plane, const T (&U)[8][3],
 //                   T (&lo)[4][3], T (&hi)[4][3]) const;
-//   (kFields 2: operator()(tet, sg, plane, U, U2, lo, hi), U2 the cell's
-//   corners of u2, masked and weld-spread as u's)
 // which adds tet `tet`'s corner forces to lo (hex corners 0-3, the cell's
 // lower node layer) and hi (corners 4-7); sg points at the cell's entry in
 // plane 0 of the stage, the planes `plane` apart, in the order g (a * 3 + d),
@@ -75,7 +71,6 @@ struct Operands {
   T* y;
   int B, NI, NK, NJ;
   int weld_te;
-  const T* u2 = nullptr;  // the second field of a 2-field body
 };
 
 template <int BYTES>
@@ -121,7 +116,6 @@ __device__ __forceinline__ void walk(const Operands<T>& p, const Body& body) {
   using grid_tet::weld_row;
   constexpr int kPlanes = Body::kPlanes;
   constexpr bool kSig = kPlanes > 13;
-  constexpr bool kTwo = Body::kFields > 1;
   constexpr int kOwnJ = kLanes - 1;  // node columns a block writes along span
   constexpr int kOwnI = ROWS - 1;    // ... and along chord
   constexpr int kThreads = kLanes * ROWS;
@@ -151,7 +145,6 @@ __device__ __forceinline__ void walk(const Operands<T>& p, const Body& body) {
   const int ustride = uplane * B;                    // u's component stride
   const int a0 = c0j - (((c0j % VEC) + VEC) % VEC);  // c0j rounded down to VEC
   const T* ub = p.u + b * uplane;
-  const T* ub2 = kTwo ? p.u2 + b * uplane : nullptr;
   const int n_steps = nt * 6;
 
   // Copy q = tid + n * kThreads of a stage lands at q * VEC in its ring slot
@@ -196,22 +189,16 @@ __device__ __forceinline__ void walk(const Operands<T>& p, const Body& body) {
   for (int s = 0; s < DEPTH - 1; ++s) issue(s);
 
   // corner displacements of the cell, masked and weld-spread on load:
-  // U[q] for q < 4 on node layer k, q >= 4 on layer k + 1 (U2 the same of u2)
+  // U[q] for q < 4 on node layer k, q >= 4 on layer k + 1
   T U[8][3];
-  T U2[kTwo ? 8 : 1][3];
   auto load_layer = [&](int k, int q0) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int i = ci + corner_di(q), j = cj + corner_dj(q);
-      const bool weld = weld_row(i, NI, p.weld_te);
-      const int node = (i * NK + (weld ? 0 : k)) * NJ + j;
+      const int node = (i * NK + grid_tet::weld_k(i, k, NI, p.weld_te)) * NJ + j;
       const T fr = __ldg(p.free + j);
 #pragma unroll
       for (int c = 0; c < 3; ++c) U[q0 + q][c] = __ldg(ub + c * ustride + node) * fr;
-      if constexpr (kTwo) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) U2[q0 + q][c] = __ldg(ub2 + c * ustride + node) * fr;
-      }
     }
   };
   if (cell_ok) load_layer(0, 0);
@@ -250,13 +237,7 @@ __device__ __forceinline__ void walk(const Operands<T>& p, const Body& body) {
         cp_async_wait<DEPTH - 2>();
         __syncthreads();  // stage s landed; every thread is done with stage s - 1
         issue(s + DEPTH - 1);
-        if (cell_ok) {
-          if constexpr (kTwo) {
-            body(t, ring + (s % DEPTH) * STAGE + soff, PLANE, U, U2, lo, hi);
-          } else {
-            body(t, ring + (s % DEPTH) * STAGE + soff, PLANE, U, lo, hi);
-          }
-        }
+        if (cell_ok) body(t, ring + (s % DEPTH) * STAGE + soff, PLANE, U, lo, hi);
       }
     }
     // node (n0j + lane) of this row: corner dj = 1 of this lane's cell plus
@@ -277,13 +258,12 @@ __device__ __forceinline__ void walk(const Operands<T>& p, const Body& body) {
       for (int c = 0; c < 3; ++c) {
         const T f = h1[c] + pb[c * kThreads + tid + kLanes];
         if (!wweld) {
-          p.y[c * ustride + node] =
-              Body::kIdentity ? f * wfree + uw[c] * (T(1) - wfree) : f * wfree;
+          p.y[c * ustride + node] = grid_tet::masked_store<Body::kIdentity>(f, wfree, uw[c]);
         } else {
           wsum[c] += f;
           if (k > 0) {
             p.y[c * ustride + node] =
-                Body::kIdentity ? T(0) * wfree + uw[c] * (T(1) - wfree) : T(0);
+                Body::kIdentity ? grid_tet::masked_store<true>(T(0), wfree, uw[c]) : T(0);
           }
         }
       }
@@ -294,19 +274,14 @@ __device__ __forceinline__ void walk(const Operands<T>& p, const Body& body) {
       for (int c = 0; c < 3; ++c) {
         lo[q][c] = hi[q][c];
         U[q][c] = U[q + 4][c];
-        if constexpr (kTwo) U2[q][c] = U2[q + 4][c];
       }
     }
   }
   if (writer && wweld) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      if constexpr (Body::kIdentity) {
-        const T uv = __ldg(p.u + c * ustride + wnode);
-        p.y[c * ustride + wnode] = wsum[c] * wfree + uv * (T(1) - wfree);
-      } else {
-        p.y[c * ustride + wnode] = wsum[c] * wfree;
-      }
+      const T uv = Body::kIdentity ? __ldg(p.u + c * ustride + wnode) : T(0);
+      p.y[c * ustride + wnode] = grid_tet::masked_store<Body::kIdentity>(wsum[c], wfree, uv);
     }
   }
 }

@@ -51,7 +51,6 @@ template <typename T>
 struct strain_apply_body {
   static constexpr int kPlanes = 13;  // 4 x 3 gradient planes and the volume
   static constexpr bool kIdentity = true;
-  static constexpr int kFields = 1;
   T lam, mu;
 
   __device__ __forceinline__ void operator()(int tet, const T* sg, int plane,

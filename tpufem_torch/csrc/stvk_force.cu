@@ -22,24 +22,22 @@
 // 3.35 TB/s. The arithmetic is ~330 flops per tet, ~1.8 us at the FP64 rate
 // outside the tensor cores.
 //
-// Design: kernel B's cell-centric walk (grid_walk.cuh: a block of 8 warps per
-// lane and 32 x 8-cell tile, the 13 planes of each (layer, tet) staged
-// through a cp.async ring, fixed-order node sums without atomics, so two calls
-// give the same bits) with the StVK body below.
+// Design: grid_tile.cuh's schedule for one lane, with the StVK body below:
+// every cell of a tile is evaluated at once (no barrier between layers or
+// tets), then one barrier and a fixed-order node sum in shared memory without
+// atomics, so two calls give the same bits. The tile a launch takes is
+// tpufem_grid_tile_f64's below.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
-#include "grid_walk.cuh"
+#include "grid_tile.cuh"
 #include "stvk.cuh"
 
 namespace {
 
 template <typename T>
 struct stvk_force_body {
-  static constexpr int kPlanes = 13;  // 4 x 3 gradient planes and the volume
   static constexpr bool kIdentity = true;
-  static constexpr int kFields = 1;
   T lam, mu;
 
   __device__ __forceinline__ void operator()(int tet, const T* sg, int plane,
@@ -60,28 +58,10 @@ struct stvk_force_body {
   }
 };
 
-constexpr int kRows = 8;  // cell rows along chord per block (one warp each)
-constexpr int kDepth = 3;  // ring stages (kernel B's f64 setting)
-
-template <int VEC>
-__global__ void __launch_bounds__(grid_walk::kLanes * kRows)
-    stvk_force_kernel(grid_walk::Operands<double> p, stvk_force_body<double> body) {
-  grid_walk::walk<double, kRows, VEC, kDepth>(p, body);
-}
-
-template <int VEC>
-int launch_with(const grid_walk::Operands<double>& a, stvk_force_body<double> body,
-                cudaStream_t stream) {
-  constexpr size_t smem =
-      grid_walk::smem_bytes<double, stvk_force_body<double>::kPlanes, kRows, VEC, kDepth>();
-  // above 48 KB of dynamic shared memory needs the opt-in, once per kernel
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      stvk_force_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  stvk_force_kernel<VEC>
-      <<<grid_walk::grid_of<kRows>(a.B, a.NI, a.NJ), dim3(grid_walk::kLanes, kRows), smem, stream>>>(
-          a, body);
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(grid_tile::kThreads, grid_tile::kMinBlocks)
+    stvk_force_kernel(grid_tile::Operands<double> p, grid_tile::Tile tile,
+                      stvk_force_body<double> body) {
+  grid_tile::run<double, 1>(p, tile, body);
 }
 
 }  // namespace
@@ -92,15 +72,21 @@ extern "C" int tpufem_stvk_force_f64(const void* g, const void* vol, const void*
                                      const void* free, void* y, int B, int NI, int NK, int NJ,
                                      int weld_te, double lam, double mu, void* stream) {
   if (B <= 0 || NI < 2 || NK < 2 || NJ < 2) return 0;
-  const grid_walk::Operands<double> a{static_cast<const double*>(g),
-                                      static_cast<const double*>(vol), nullptr,
+  const grid_tile::Operands<double> a{static_cast<const double*>(g),
+                                      static_cast<const double*>(vol),
                                       static_cast<const double*>(u),
                                       static_cast<const double*>(free), static_cast<double*>(y),
-                                      B, NI, NK, NJ, weld_te};
-  const stvk_force_body<double> body{lam, mu};
-  // a 16-byte copy needs its span row, every plane and both bases aligned
-  const bool aligned = (NJ - 1) % 2 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(vol) % 16 == 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return aligned ? launch_with<2>(a, body, st) : launch_with<1>(a, body, st);
+                                      B, NI, NK, NJ, weld_te, nullptr};
+  return grid_tile::launch(stvk_force_kernel, a, stvk_force_body<double>{lam, mu},
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// The tile kernels H and I launch with at this grid on the current device
+// (grid_tile::tile_of): tile[0] owned node columns along span, tile[1] chord
+// rows. Returns 0.
+extern "C" int tpufem_grid_tile_f64(int B, int NI, int NK, int NJ, int* tile) {
+  const grid_tile::Tile t = grid_tile::tile_of<double>(B, NI, NK, NJ, grid_tile::sm_count());
+  tile[0] = t.own_j;
+  tile[1] = t.own_i;
+  return 0;
 }

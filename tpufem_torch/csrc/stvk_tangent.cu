@@ -23,25 +23,22 @@
 // B = 1, 21.8 MB, ~6.5 us at 3.35 TB/s. The arithmetic, ~520 flops per tet,
 // is ~2.8 us at the FP64 rate outside the tensor cores.
 //
-// Design: the walk of grid_walk.cuh with a 2-field body: both fields' corners
-// are masked and weld-spread on load and kept in registers, so a thread holds
-// 48 corner values, 24 corner forces, and H, dH, S and dS at once. Tiles are
-// 32 x 4 cells (kernel G's choice for a body of ~200 registers: 4 warps a
-// block, so an SM can hold two blocks).
+// Design: grid_tile.cuh's schedule for one lane with a 2-field body: a
+// thread loads the corners of both fields its cell touches, masked and
+// weld-spread; every cell of a tile is evaluated at once, then one barrier and
+// a fixed-order node sum in shared memory without atomics, so two calls give
+// the same bits. The tile is H's (stvk_force.cu: tpufem_grid_tile_f64).
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
-#include "grid_walk.cuh"
+#include "grid_tile.cuh"
 #include "stvk.cuh"
 
 namespace {
 
 template <typename T>
 struct stvk_tangent_body {
-  static constexpr int kPlanes = 13;  // 4 x 3 gradient planes and the volume
-  static constexpr bool kIdentity = true;
-  static constexpr int kFields = 2;  // U: the direction x (the identity field); U2: the state u
+  static constexpr bool kIdentity = true;  // of X, the direction
   T lam, mu;
 
   __device__ __forceinline__ void operator()(int tet, const T* sg, int plane,
@@ -75,28 +72,10 @@ struct stvk_tangent_body {
   }
 };
 
-constexpr int kRows = 4;   // cell rows along chord per block (one warp each)
-constexpr int kDepth = 3;  // ring stages
-
-template <int VEC>
-__global__ void __launch_bounds__(grid_walk::kLanes * kRows)
-    stvk_tangent_kernel(grid_walk::Operands<double> p, stvk_tangent_body<double> body) {
-  grid_walk::walk<double, kRows, VEC, kDepth>(p, body);
-}
-
-template <int VEC>
-int launch_with(const grid_walk::Operands<double>& a, stvk_tangent_body<double> body,
-                cudaStream_t stream) {
-  constexpr size_t smem =
-      grid_walk::smem_bytes<double, stvk_tangent_body<double>::kPlanes, kRows, VEC, kDepth>();
-  static const cudaError_t opt_in =
-      cudaFuncSetAttribute(stvk_tangent_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  stvk_tangent_kernel<VEC>
-      <<<grid_walk::grid_of<kRows>(a.B, a.NI, a.NJ), dim3(grid_walk::kLanes, kRows), smem, stream>>>(
-          a, body);
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(grid_tile::kThreads, grid_tile::kMinBlocks)
+    stvk_tangent_kernel(grid_tile::Operands<double> p, grid_tile::Tile tile,
+                        stvk_tangent_body<double> body) {
+  grid_tile::run<double, 2>(p, tile, body);
 }
 
 }  // namespace
@@ -109,15 +88,11 @@ extern "C" int tpufem_stvk_tangent_f64(const void* g, const void* vol, const voi
                                        int NK, int NJ, int weld_te, double lam, double mu,
                                        void* stream) {
   if (B <= 0 || NI < 2 || NK < 2 || NJ < 2) return 0;
-  grid_walk::Operands<double> a{static_cast<const double*>(g),
-                                static_cast<const double*>(vol), nullptr,
-                                static_cast<const double*>(x),
-                                static_cast<const double*>(free), static_cast<double*>(y),
-                                B, NI, NK, NJ, weld_te};
-  a.u2 = static_cast<const double*>(u);
-  const stvk_tangent_body<double> body{lam, mu};
-  const bool aligned = (NJ - 1) % 2 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(vol) % 16 == 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return aligned ? launch_with<2>(a, body, st) : launch_with<1>(a, body, st);
+  const grid_tile::Operands<double> a{static_cast<const double*>(g),
+                                      static_cast<const double*>(vol),
+                                      static_cast<const double*>(x),
+                                      static_cast<const double*>(free), static_cast<double*>(y),
+                                      B, NI, NK, NJ, weld_te, static_cast<const double*>(u)};
+  return grid_tile::launch(stvk_tangent_kernel, a, stvk_tangent_body<double>{lam, mu},
+                                  static_cast<cudaStream_t>(stream));
 }

@@ -17,8 +17,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
@@ -69,6 +71,8 @@ _SIGNATURES = {
     "tpufem_stvk_force_f64": [_P] * 5 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2 + [_P],
     # (g, vol, x, u, free, y, B, NI, NK, NJ, weld_te, lam, mu, stream)
     "tpufem_stvk_tangent_f64": [_P] * 6 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2 + [_P],
+    # (B, NI, NK, NJ, int[2] out) -> 0: the tile (own_j, own_i) of H's and I's launch
+    "tpufem_grid_tile_f64": [ctypes.c_int] * 4 + [_P],
     # (B, NI, NK, NJ) -> the number of per-block partials
     "tpufem_stvk_energy_blocks": [ctypes.c_int] * 4,
     # (g, vol, u, free, partial, ticket, out, B, NI, NK, NJ, weld_te, lam, mu, stream)
@@ -92,11 +96,14 @@ def _nvcc() -> str:
                        "toolkit is installed")
 
 
-def build_library(csrc: Path) -> ctypes.CDLL:
+def build_library(csrc: Path, info: dict | None = None) -> ctypes.CDLL:
     """Build (if needed) and load the kernel library of the sources in
     `csrc`; raises on any failure. The port's own library is load_kernels();
-    the profilers' --compare builds another commit's csrc/ beside it."""
+    the profilers' --compare builds another commit's csrc/, or an edited
+    copy, beside it. `info` (default build_info) receives the build's ptxas report
+    (kept beside the library, so a cached build reports it too) and time."""
     csrc = Path(csrc)
+    info = build_info if info is None else info
     sources = sorted(csrc.glob("*.cu"))
     digest = hashlib.sha256()
     for src in sorted(csrc.glob("*.cu*")):  # the sources and the headers they include
@@ -104,11 +111,14 @@ def build_library(csrc: Path) -> ctypes.CDLL:
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     lib_path = BUILD_DIR / f"libtpufem_kernels_{digest.hexdigest()[:16]}.so"
+    log_path = lib_path.with_suffix(".log")  # nvcc's -Xptxas -v report
     t0 = time.perf_counter()
     if not lib_path.exists():
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        # the process and thread: two builds of the same sources at once
+        # (compare_libraries) never share an object or a temporary
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}.{threading.get_ident()}"
         objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources]
 
         def compile_one(src: Path, obj: Path):
@@ -121,19 +131,22 @@ def build_library(csrc: Path) -> ctypes.CDLL:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n"
                                    f"{proc.stderr}")
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        tmp = lib_path.with_suffix(f".{tag}.tmp")
         link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
                               capture_output=True, text=True)
         for obj in objs:
             obj.unlink(missing_ok=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        log_path.write_text("".join(p.stderr for p in procs))
         os.replace(tmp, lib_path)  # atomic: a concurrent process never loads a partial file
-        build_info["log"] = "".join(p.stderr for p in procs)
-    build_info["seconds"] = time.perf_counter() - t0
-    build_info["path"] = str(lib_path)
+    info["log"] = log_path.read_text() if log_path.exists() else ""
+    info["seconds"] = time.perf_counter() - t0
+    info["path"] = str(lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
+        if csrc != CSRC and not hasattr(lib, name):
+            continue  # another commit's sources may predate an entry point
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -149,15 +162,38 @@ def load_kernels() -> ctypes.CDLL:
 
 def compare_libraries(specs) -> dict:
     """{label: library} for the profilers' --compare LABEL=DIR arguments:
-    each DIR a csrc/ of another commit or variant (e.g. unpacked with `git
-    archive <rev> tpufem_torch/csrc`), built with build_library. Measuring
-    aids only: no entry point of the port loads them."""
-    out = {}
+    each DIR a csrc/ of another commit (e.g. unpacked with `git archive <rev>
+    tpufem_torch/csrc`) or an edited copy of the port's, built with
+    build_library, all libraries at once. Each library's build report is its
+    `build_info` attribute. Measuring aids only: no entry point of the port
+    loads them."""
+    parsed = []
     for spec in specs:
         label, sep, path = spec.partition("=")
         if not sep or not label or not path:
             raise ValueError(f"--compare takes LABEL=DIR, not {spec!r}")
-        out[label] = build_library(Path(path))
+        parsed.append((label, Path(path), {}))
+    with ThreadPoolExecutor(max_workers=max(len(parsed), 1)) as pool:
+        libs = list(pool.map(lambda a: build_library(a[1], a[2]), parsed))
+    out = {}
+    for (label, _, info), lib in zip(parsed, libs):
+        lib.build_info = info
+        out[label] = lib
+    return out
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel entry (mangled name): (registers, spill store bytes, spill load
+    bytes)} from nvcc's -Xptxas -v output."""
+    out, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            out[name] = (int(m.group(1)), *spills)
+            name, spills = None, (0, 0)
     return out
 
 

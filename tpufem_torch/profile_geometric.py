@@ -35,7 +35,8 @@ CG tolerance, its iterations and the factors' largest relative change.
 commit's, unpacked with `git archive <rev> tpufem_torch/csrc | tar -x -C
 build/parent`, or a variant's) is timed at every shape beside the port's
 own, before and after it in turns, into a library of its own
-(ops/kernels.py::compare_libraries); nothing else loads it.
+(ops/kernels.py::compare_libraries), and its result is held to the port's
+bit for bit; nothing else loads it.
 
 Usage: python -m tpufem_torch.profile_geometric [--out PATH]
            [--buckling_tols 1e-5 1e-7] [--compare LABEL=DIR ...]
@@ -205,6 +206,7 @@ def measure_library(label, lib, res, q, device, p4=None):
         sig, x, free = sig64.to(dt), x64.to(dt), free64.to(dt)
         fn = library_geom_apply(lib, res, geo, sig, x, free)
         y = fn().clone()
+        port = bk.geom_apply(res, geo, sig, x, free)
         err = (y.double() - ref).abs().max().item()
         r = device_time(fn, "geom_apply", cold=True)
         bound_us, by = call_bound("geom_apply", (geo[0], geo[1], sig, x, free), y,
@@ -212,7 +214,8 @@ def measure_library(label, lib, res, q, device, p4=None):
         out[f"geom_apply {dname}"] = {
             "kernel": "geom_apply", "library": label, "grid": list(res.key), "q": q,
             "dtype": dname, "max_abs_err": err, "rel_err": err / ref.abs().max().item(),
-            "bitwise_repeat": bool(torch.equal(y, fn())), "device_us": r["device_us"],
+            "bitwise_repeat": bool(torch.equal(y, fn())), "same_bits_as_port": bool(
+                torch.equal(y, port)), "device_us": r["device_us"],
             "device_us_cold": r["device_us_cold"], "activities": r["activities"],
             "bound_us": bound_us, "bound_by": by, "share": bound_us / r["device_us_cold"],
             "share_repeated": bound_us / r["device_us"]}
@@ -221,7 +224,8 @@ def measure_library(label, lib, res, q, device, p4=None):
 
 def library_line(label, rec):
     return (f"[compare {rec['library']}] geom_apply {label} q={rec['q']} {rec['dtype']}: rel err "
-            f"{rec['rel_err']:.2e}, bitwise repeat {rec['bitwise_repeat']}; device "
+            f"{rec['rel_err']:.2e}, bitwise repeat {rec['bitwise_repeat']}, the port's bits "
+            f"{rec['same_bits_as_port']}; device "
             f"{rec['device_us']:.2f} us repeated, {rec['device_us_cold']:.2f} us L2 flushed, "
             f"{rec['activities']:.0f} activity per call; bound {rec['bound_us']:.2f} us: "
             f"{rec['share']:.1%} flushed")

@@ -12,7 +12,9 @@ pressure (WingStencilT, tol 1e-8), or a seeded random field; x (I's
 direction) is seeded random. measure_vjp(): K on a batch's geometry, with u
 and the cotangent w seeded random. The shapes (chip_smoke.py phase 8 and
 main()): DOF100K wing 0 of the seeded batch and the nonlinear CLI's 16x24x4
-wing (B = 1), a sharp-TE 16x24x4 grid; K at the optimize CLI's grids 32x40x4
+wing (B = 1), a sharp-TE 16x24x4 grid and the tiles' edge grids (EDGE_RES,
+EDGE_ROWS_RES; H's and I's records name the tile their launch took,
+launch_tile); K at the optimize CLI's grids 32x40x4
 and 24x32x2 (its record's) at its four starting designs, and DOF100K wings
 0-3. Per kernel: the error against the plain version over the plain result's
 largest entry, or for H and I the magnitude of the terms that cancel where
@@ -32,12 +34,21 @@ corrections, solved once to warm up, then under torch.profiler: CG and Newton
 iterations, wall, device busy time, and the device time of kernels I, H, J
 and B (f64: the linear reference solve; f32: the V-cycle) as shares of it.
 
-Usage: python -m tpufem_torch.profile_nonlinear [--out PATH]
+--compare LABEL=DIR ...: kernels H and I as built from another csrc/ (the
+parent commit's, unpacked with `git archive <rev> tpufem_torch/csrc | tar -x
+-C build/parent`, or an edited copy of the port's) are timed the same way at
+every measure() shape, before and after the port's own, each into a
+library of its own (ops/kernels.py::compare_libraries); each library's ptxas
+registers and spills are printed, and an empty kernel's device time per
+launch (torch.cuda._sleep(0)), the floor of a launch at the small shapes.
+
+Usage: python -m tpufem_torch.profile_nonlinear [--out PATH] [--compare LABEL=DIR ...]
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import sys
 import time
@@ -51,6 +62,13 @@ from tpufem_torch.fem import nonlinear as nl
 from tpufem_torch.fem import stencil as st
 from tpufem_torch.fem.material import Material, lame_params
 from tpufem_torch.mesher import DOF100K, WingMeshResolution
+from tpufem_torch.ops.kernels import (
+    build_info,
+    check,
+    compare_libraries,
+    load_kernels,
+    ptxas_report,
+)
 from tpufem_torch.profile_solve import seeded_batch
 from tpufem_torch.utils.profiling import device_time, median_event_ms
 
@@ -72,9 +90,10 @@ REPLACES = {"stvk_internal_force": "tpufem/fem/nonlinear.py:107",
             "stvk_tangent_apply": "tpufem/fem/nonlinear.py:238",
             "stvk_energy": "tpufem/fem/nonlinear.py:130",
             "strain_apply_geo_vjp": "tpufem/fem/adjoint.py:156"}
-DESIGNS = {"stvk_internal_force": "kernel B's cell-centric walk (csrc/grid_walk.cuh), 32 x 8-cell "
-                                  "tiles, the StVK body",
-           "stvk_tangent_apply": "the same walk with a 2-field body (x and u), 32 x 4-cell tiles",
+DESIGNS = {"stvk_internal_force": "csrc/grid_tile.cuh: a thread per cell of a tile of 16 (else 8) "
+                                  "node columns at full thickness, all cells at once, one barrier "
+                                  "and a fixed-order node sum in shared memory; the StVK body",
+           "stvk_tangent_apply": "the same schedule with a 2-field body (x and u)",
            "stvk_energy": "a thread per lane and cell, block partials summed by the last block "
                           "in a fixed order",
            "strain_apply_geo_vjp": "a thread per lane and cell, the 6 tets in turn, no scatter"}
@@ -84,6 +103,14 @@ NL_P4 = (1.6, 0.3, 0.0, 0.08)
 NL_PRESSURE = 1.5e5
 OPT_RES = WingMeshResolution(32, 40, 4, 0.006, "le")
 OPT_RECORD_RES = WingMeshResolution(24, 32, 2, 0.006, "le")  # results/wing_optimization.json's
+# the edges of H's and I's tiles (grid_tile.cuh; the tiles a 132-SM card
+# takes): 38 node columns fill no tile of 8 columns and one chord row evenly,
+# with a welded trailing edge and two cell layers; and DOF100K with a welded
+# trailing edge, whose tiles of 16 columns and 3 chord rows leave 2 of 3 rows
+# in the last chord tile (the weld row among them) and 1 of 16 columns in the
+# last span tile
+EDGE_RES = WingMeshResolution(13, 37, 2, 0.0, "le")
+EDGE_ROWS_RES = WingMeshResolution(64, 80, 6, 0.0, "le")
 LAM, MU = lame_params(Material())
 
 
@@ -136,6 +163,15 @@ def nl_inputs(res: WingMeshResolution, p4, device, u=None, seed=0):
     return geo, u, seeded_field(res, 1, seed + 1, device), free
 
 
+def launch_tile(res: WingMeshResolution, B: int = 1) -> tuple[int, int]:
+    """(owned node columns along span, chord rows): the tile kernels H and I
+    launch with at grid res on the current card."""
+    out = (ctypes.c_int * 2)()
+    load_kernels().tpufem_grid_tile_f64(B, res.n_chord + 1, res.n_thick + 1, res.n_span + 1,
+                                        ctypes.addressof(out))
+    return out[0], out[1]
+
+
 def error_scales(res, geo, u, x, free) -> dict:
     """The scale H's and I's errors are judged against: the plain version's
     largest entry, or the magnitude of the terms whose sums cancel, where
@@ -172,6 +208,16 @@ def counter(name: str):
     return st.strain_apply_geo_vjp if name == "strain_apply_geo_vjp" else getattr(nl, name)
 
 
+def call_bound(name, operands, outputs, n_tets):
+    """(bound us, "bytes" or "operations", bytes) of one call: each operand
+    read once and each output written once over the card's memory rate, or
+    FLOPS_PER_TET per Kuhn tet over its f64 rate, the larger."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*operands, *outputs))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = FLOPS_PER_TET[name] * n_tets / PEAK_FLOPS[torch.float64]
+    return max(t_bytes, t_ops) * 1e6, "bytes" if t_bytes >= t_ops else "operations", nbytes
+
+
 def check_and_time(name, label, fn, plain, operands, n_tets, timed=True, scale=None) -> dict:
     """One kernel's checks (raises on a miss: one launch per call, the same
     bits twice, within 1e-12 of the plain version's largest entry or of
@@ -196,17 +242,14 @@ def check_and_time(name, label, fn, plain, operands, n_tets, timed=True, scale=N
     rec = {"kernel": name, "case": label, "max_abs_err": err, "scale": scale,
            "rel_err": err / scale, "output_scale": out_scale}
     if timed:
-        nbytes = sum(t.numel() * t.element_size() for t in (*operands, *ys))
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, FLOPS_PER_TET[name] * n_tets / PEAK_FLOPS[
-            torch.float64]
-        bound_us = max(t_bytes, t_ops) * 1e6
+        bound_us, bound_by, nbytes = call_bound(name, operands, ys, n_tets)
         r = device_time(fn, KERNEL_NAMES[name], cold=True)
         if r["launches"] != 1 or r["activities"] != 1:
             raise RuntimeError(f"{name} {label}: {r['launches']} launches and "
                                f"{r['activities']} device activities per call, not 1")
         rec.update(ms=median_event_ms(fn, 7), plain_ms=median_event_ms(plain, 7),
-                   bound_us=bound_us, bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   bytes=nbytes, device_us=r["device_us"], device_us_cold=r["device_us_cold"],
+                   bound_us=bound_us, bound_by=bound_by, bytes=nbytes,
+                   device_us=r["device_us"], device_us_cold=r["device_us_cold"],
                    launches=r["launches"], activities=r["activities"],
                    share=bound_us / r["device_us_cold"], share_repeated=bound_us / r["device_us"])
     return rec
@@ -217,9 +260,12 @@ def measure(label, res, p4, device, u=None, seed=0, timed=True) -> dict:
     {kernel: record}; raises on a miss."""
     geo, u, x, free = nl_inputs(res, p4, device, u, seed)
     scales = error_scales(res, geo, u, x, free)
+    own_j, own_i = launch_tile(res)
+    tile = {"tile": [own_j, own_i],
+            "blocks": -(-(res.n_span + 1) // own_j) * -(-(res.n_chord + 1) // own_i)}
     return {name: {**check_and_time(name, label, fn, plain, ops, geo[1].numel(), timed,
                                     scales.get(name)),
-                   "grid": list(res.key), "B": 1}
+                   "grid": list(res.key), "B": 1, **(tile if name in COMPARED else {})}
             for name, (fn, plain, ops) in nl_calls(res, geo, u, x, free).items()}
 
 
@@ -239,11 +285,83 @@ def measure_vjp(label, res, p4, device, seed=0, timed=True) -> dict:
     return {**rec, "grid": list(res.key), "B": int(p4.shape[0])}
 
 
+COMPARED = ("stvk_internal_force", "stvk_tangent_apply")  # the kernels --compare times
+
+
+def library_call(lib, name, res, geo, u, x, free):
+    """Kernel H or I through another build of the kernels (--compare): the
+    wrapper's launch without its operand checks and launch counter. Returns
+    the call; each call overwrites one output buffer."""
+    g, vol = geo
+    _, B, NI, NK, NJ = u.shape
+    y = torch.empty_like(u)
+    if name == "stvk_internal_force":
+        fn, ptrs = lib.tpufem_stvk_force_f64, (g, vol, u, free, y)
+    else:
+        fn, ptrs = lib.tpufem_stvk_tangent_f64, (g, vol, x, u, free, y)
+    args = (*(t.data_ptr() for t in ptrs), B, NI, NK, NJ, int(res.te_floor_frac == 0.0),
+            float(LAM), float(MU))
+
+    def call():
+        check(fn(*args, torch.cuda.current_stream(u.device).cuda_stream), KERNEL_NAMES[name])
+        return y
+
+    return call
+
+
+def measure_library(label, lib_label, lib, res, p4, device, u=None, seed=0) -> dict:
+    """Kernels H and I of library `lib` (another commit's or a variant's
+    build) on measure()'s inputs: the error against the plain version on
+    measure()'s scale, the same bits twice, device time repeated and with the
+    L2 flushed, device activities per call and the share of the same bound.
+    Returns {kernel: record}."""
+    geo, u, x, free = nl_inputs(res, p4, device, u, seed)
+    scales = error_scales(res, geo, u, x, free)
+    calls = nl_calls(res, geo, u, x, free)
+    out = {}
+    for name in COMPARED:
+        _, plain, operands = calls[name]
+        fn = library_call(lib, name, res, geo, u, x, free)
+        y = fn().clone()
+        ref = plain()
+        scale = max(ref.abs().max().item(), scales[name])
+        err = (y - ref).abs().max().item()
+        r = device_time(fn, KERNEL_NAMES[name], cold=True)
+        bound_us, bound_by, _ = call_bound(name, operands, (y,), geo[1].numel())
+        out[name] = {"kernel": name, "library": lib_label, "case": label, "grid": list(res.key),
+                     "B": 1, "max_abs_err": err, "rel_err": err / scale,
+                     "bitwise_repeat": bool(torch.equal(y, fn())), "device_us": r["device_us"],
+                     "device_us_cold": r["device_us_cold"], "launches": r["launches"],
+                     "activities": r["activities"], "bound_us": bound_us, "bound_by": bound_by,
+                     "share": bound_us / r["device_us_cold"],
+                     "share_repeated": bound_us / r["device_us"]}
+    return out
+
+
+def library_line(rec) -> str:
+    return (f"[compare {rec['library']}] {rec['kernel']} {rec['case']} {rec['grid']}: rel err "
+            f"{rec['rel_err']:.2e}, bitwise repeat {rec['bitwise_repeat']}; device "
+            f"{rec['device_us']:.2f} us repeated, {rec['device_us_cold']:.2f} us L2 flushed, "
+            f"{rec['launches']:.0f} launch and {rec['activities']:.0f} activity per call; bound "
+            f"{rec['bound_us']:.2f} us: {rec['share']:.1%} flushed")
+
+
+def ptxas_line(label, log) -> str:
+    """The registers and spills ptxas reported for the grid kernels of one
+    library's build (kernels B, G, H, I)."""
+    keep = ("strain_apply_kernel", "geom_apply_kernel", "stvk_force_kernel",
+            "stvk_tangent_kernel")
+    rep = {k: v for k, v in ptxas_report(log).items() if any(n in k for n in keep)}
+    return f"[ptxas {label}] (registers, spill store bytes, spill load bytes): {rep}"
+
+
 def line(rec) -> str:
     s = (f"[kernel {LETTERS[rec['kernel']]}] {rec['kernel']} {rec['case']} {rec['grid']} "
          f"B={rec['B']} f64: max|err| {rec['max_abs_err']:.3e} (scale {rec['scale']:.3e}, rel "
          f"{rec['rel_err']:.2e}; the result's largest entry {rec['output_scale']:.3e}), bitwise "
          f"repeatable")
+    if "tile" in rec:
+        s += f"; tile {rec['tile'][0]} x {rec['tile'][1]} node columns, {rec['blocks']} blocks"
     if "ms" in rec:
         s += (f"; {rec['launches']:.0f} launch, {rec['activities']:.0f} device activity per call;"
               f" event {rec['ms']:.4f} ms vs plain {rec['plain_ms']:.4f} ms (median of 7); device "
@@ -265,6 +383,10 @@ def shapes(device, u_dof100k=None):
          {"res": NL_RES, "p4": NL_P4, "u": linear_u(NL_RES, NL_P4, NL_PRESSURE, device)}),
         ("16x24x4 sharp TE, random u", measure,
          {"res": WingMeshResolution(16, 24, 4, 0.0, "le"), "p4": NL_P4, "seed": 5}),
+        ("13x37x2 ragged tiles, sharp TE, random u", measure, {"res": EDGE_RES, "p4": NL_P4,
+                                                               "seed": 7}),
+        ("DOF100K sharp TE, ragged tiles, random u", measure, {"res": EDGE_ROWS_RES, "p4": w0,
+                                                               "seed": 9}),
         ("32x40x4 optimizer start", measure_vjp, {"res": OPT_RES, "p4": opt_start_p4()}),
         ("24x32x2 optimizer start", measure_vjp, {"res": OPT_RECORD_RES, "p4": opt_start_p4()}),
         ("DOF100K wings 0-3", measure_vjp, {"res": DOF100K, "p4": seeded_batch(8)[:4]}),
@@ -308,17 +430,38 @@ def newton_profile(device) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="file for the results as JSON lines")
+    ap.add_argument("--compare", nargs="*", default=[], metavar="LABEL=DIR",
+                    help="also time kernels H and I as built from each csrc/ DIR (another "
+                         "commit's, or an edited copy), before and after the port's own, at "
+                         "every shape")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_nonlinear: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    rows = []
+    load_kernels()
+    libs = compare_libraries(args.compare)
+    print(ptxas_line("port", build_info.get("log", "")), flush=True)
+    for lab, lib in libs.items():
+        print(ptxas_line(lab, lib.build_info.get("log", "")), flush=True)
+    empty = lambda: torch.cuda._sleep(0)  # noqa: E731
+    r = device_time(empty, "")  # the window holds nothing else
+    print(f"[empty kernel] torch.cuda._sleep(0): device {r['device_us']:.2f} us per launch, "
+          f"event {median_event_ms(empty, 7):.4f} ms: the floor of one launch", flush=True)
+    rows = [{"case": "empty kernel", **r}]
     for label, fn, kw in shapes(dev):
-        out = fn(label, device=dev, **kw)
-        for rec in (out.values() if fn is measure else (out,)):
-            print(line(rec), flush=True)
-            rows.append(rec)
+        # in turns: the compared builds, the port's kernels, the compared builds again
+        for turn in (0, 1):
+            if turn:
+                out = fn(label, device=dev, **kw)
+                for rec in (out.values() if fn is measure else (out,)):
+                    print(line(rec), flush=True)
+                    rows.append(rec)
+            if fn is measure:
+                for lab, lib in (libs.items() if turn == 0 else reversed(libs.items())):
+                    for rec in measure_library(label, lab, lib, device=dev, **kw).values():
+                        print(library_line(rec), flush=True)
+                        rows.append({**rec, "turn": turn})
     r = newton_profile(dev)
     print(f"[newton] {r['grid']} p={r['pressure']:.0f}: {r['newton_iters']} Newton, "
           f"{r['cg_iters']} CG iterations, {r['wall_s']:.3f} s ({r['ms_per_cg_iter']:.3f} ms per "

@@ -17,7 +17,8 @@ applies, the L2 flushed before each (``device_us_cold``).
 --compare LABEL=DIR ...: kernel B as built from another csrc/ (the parent
 commit's, unpacked with `git archive <rev> tpufem_torch/csrc | tar -x -C
 build/parent`) is timed the same way at every case, before and after the
-port's own, into a library of its own (ops/kernels.py::compare_libraries).
+port's own, into a library of its own (ops/kernels.py::compare_libraries),
+and its result is held to the port's bit for bit.
 
 Usage: python -m tpufem_torch.profile_operator [--out PATH] [--compare LABEL=DIR ...]
 """
@@ -119,6 +120,7 @@ def main(argv=None) -> int:
     for label, res in cases:
         for dtype in (torch.float64, torch.float32):
             geo, u, free = operator_inputs(res, p4, dtype, dev)
+            y_port = st.strain_apply(res, geo, u, free, lam, mu).clone()
             # in turns: the compared builds, the port's kernel, the compared builds again
             order = [*libs, None, *reversed(libs)]
             for n, lab in enumerate(order):
@@ -127,13 +129,14 @@ def main(argv=None) -> int:
                 r = profile_apply(res, geo, u, free, lam, mu, fn)
                 r.update(case=label, grid=res.key, batch=BATCH, dtype=str(dtype),
                          library=lab or "port", turn=int(n > len(libs)))
+                same = "" if fn is None else f"; the port's bits: {torch.equal(fn(), y_port)}"
                 rows.append(r)
                 print(f"[{label} {res.key} B={BATCH} {dtype}] kernel B ({r['library']}) "
                       f"{r['device_us']:.2f} us per launch repeated, {r['device_us_cold']:.2f} "
                       f"us L2 flushed, bound {r['bound_us']:.2f} us ({r['bound_by']}): "
                       f"{r['share']:.1%} / {r['share_cold']:.1%} of the bound; "
                       f"{r['activities_per_apply']:.0f} device activities per apply, "
-                      f"{r['wrapper_device_us']:.2f} us of device time", flush=True)
+                      f"{r['wrapper_device_us']:.2f} us of device time{same}", flush=True)
     if args.out:
         with open(args.out, "w") as f:
             f.writelines(json.dumps(r) + "\n" for r in rows)
