@@ -44,8 +44,10 @@ trained checkpoint exists). Along the way:
      exactly 1 launch and 1 device activity per apply, with its event times,
      device time (repeated and with the L2 flushed) and bound; kernel E
      (csr_segment_sum) against its plain version, f32 and f64, with both
-     times; (b) phase 3's batch solved again: the same iterations and
-     bitwise-equal u / stress6 / vm (kernel E's fixed summation order); (c)
+     times; (b) phase 3's batch solved again, on a fresh WingStencilT (its
+     setup built anew: kernel E's fixed summation order) and on phase 3's
+     solver (a hit of its setup cache, setup 0 s): the same iterations and
+     bitwise-equal nodes / u / stress6 / vm / residuals; (c)
      the first wing of the batch at DOF100K through solve_wing_case in f64
      with the line + RBM preconditioner, twice, bitwise equal (TRUE f64
      residual recomputed on the CPU, against phase 3's stencil solution),
@@ -105,7 +107,7 @@ trained checkpoint exists). Along the way:
 Every phase raises on failure; the script then exits nonzero and prints no
 result. Usage: python3 chip_smoke.py   (one card, no arguments)
 
-Its phases took 169 s (phase 7: 34 s, phase 8: 63 s) on an
+Its phases took 181 s (phase 7: 37 s, phase 8: 59 s) on an
 NVIDIA H100 80GB HBM3 at 700 W.
 """
 
@@ -931,6 +933,7 @@ def run_gather_path(dev, res, state):
     from tpufem_torch.fem.driver import WingSolveConfig, solve_wing_case
     from tpufem_torch.fem.elements import tet4_setup
     from tpufem_torch.fem.material import Material, lame_params
+    from tpufem_torch.fem.stencil_mg import WingStencilT
     from tpufem_torch.mesher import MEDIUM, structured_wing_mesh
     from tpufem_torch.ops import csr_segment_sum as cs
     from tpufem_torch.pipeline.config import get_paths
@@ -965,14 +968,20 @@ def run_gather_path(dev, res, state):
               torch.randn((upper.size, 3), generator=gen, dtype=torch.float64, device=dev),
               cs.csr_plan(upper, mesh.num_nodes, dev))}
 
-    # ---- 6b. the stencil solve of phase 3, again: kernel E's fixed order
-    again = solver.solve(p4, pressure=PRESSURE, tol=TOL, maxiter=2000)
-    torch.cuda.synchronize()
-    require(again.iters == out.iters, f"repeat solve took {again.iters} iters, not {out.iters}")
-    for f in ("u", "stress6", "vm"):
-        require(torch.equal(getattr(again, f), getattr(out, f)), f"repeat solve: {f} differs")
-    print(f"[repeat] phase 3's batch solved again: {again.iters} iters both times, u, stress6 and "
-          f"vm bitwise equal")
+    # ---- 6b. the stencil solve of phase 3, again: on a fresh solver (setup
+    # built anew: kernel E's fixed order), then on phase 3's (its setup cache)
+    for label, slv in (("a fresh WingStencilT", WingStencilT(res, device=dev)),
+                       ("phase 3's solver, its setup cache", solver)):
+        again = slv.solve(p4, pressure=PRESSURE, tol=TOL, maxiter=2000)
+        torch.cuda.synchronize()
+        setup_s = slv.last_timing["setup_s"]
+        require(again.iters == out.iters, f"{label}: {again.iters} iters, not {out.iters}")
+        for f in ("nodes", "u", "stress6", "vm", "rel_residual"):
+            require(torch.equal(getattr(again, f), getattr(out, f)), f"{label}: {f} differs")
+        require((setup_s == 0) == (slv is solver), f"{label}: setup took {setup_s:.3f} s")
+        print(f"[repeat] phase 3's batch solved again on {label}: {again.iters} iters, setup "
+              f"{setup_s:.3f} s, solve {slv.last_timing['solve_s']:.3f} s; nodes, u, stress6, vm "
+              f"and the residuals bitwise equal to phase 3's")
 
     # ---- 6c. full width through the gather path, launch counters zeroed
     asm.stiffness_apply.launches = 0

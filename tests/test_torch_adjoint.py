@@ -6,8 +6,8 @@ pieces, which need no CG, are held to tpufem's jax.vjp on the same seeded
 inputs, and the port's whole gradient to the port's own central
 differences:
 - kernel K's plain version against jax.vjp of tpufem's strain_apply with
-  respect to the cell geometry (8x10x2, LE and sharp TE): 1e-12 of the
-  largest entry;
+  respect to the cell geometry (8x10x2, LE and sharp TE, one lane and four;
+  13x37x2 sharp TE): 1e-12 of the largest entry;
 - the VJP of F(p) = strain_apply(geo(p), u) - b(p) at fixed u (the adjoint's
   last step), of the loads b(p) alone, and of the objectives' recovery
   (volume, smooth-max von Mises) against tpufem's at 8x12x2, two lanes:
@@ -90,16 +90,25 @@ def _fields(shape, active, seeds):
     return [r.standard_normal(shape) * active for r in rng]
 
 
-@pytest.mark.parametrize("te", [0.006, 0.0], ids=["le", "sharp-te"])
-def test_geometry_vjp_matches_tpufem(te):
+# (n_chord, n_span, n_thick, te_floor_frac, lanes): tpufem's test grid 8x10x2
+# and its sharp-TE variant at one lane and four, and the sharp-TE 13x37x2 at
+# which kernel K's card test also runs
+VJP_CASES = {"le": (8, 10, 2, 0.006, 1), "sharp-te": (8, 10, 2, 0.0, 1),
+             "le-B4": (8, 10, 2, 0.006, 4), "sharp-te-B4": (8, 10, 2, 0.0, 4),
+             "13x37x2-sharp-te": (13, 37, 2, 0.0, 1)}
+
+
+@pytest.mark.parametrize("case", list(VJP_CASES))
+def test_geometry_vjp_matches_tpufem(case):
     """Kernel K's plain version: the cotangents of (g, vol) of w . strain_apply."""
-    res, jres = WingMeshResolution(8, 10, 2, te, "le"), JRes(8, 10, 2, te, "le")
-    p4 = P0[:1]
+    nc, ns, nt, te, B = VJP_CASES[case]
+    res, jres = WingMeshResolution(nc, ns, nt, te, "le"), JRes(nc, ns, nt, te, "le")
+    p4 = np.concatenate([P0, P0 * np.array([1.1, 0.9, 0.5, 1.2])])[:B]
     geo = tst.cell_geometry(res, tst.nodes_grid(res, torch.as_tensor(p4), torch.float64))
     jgeo = jst.cell_geometry(jres, jst.nodes_grid(jres, jnp.asarray(p4), jnp.float64))
-    free = np.ones((1, 1, 1, 1, 11))
+    free = np.ones((1, 1, 1, 1, ns + 1))
     free[..., 0] = 0.0
-    u, w = _fields((3, 1, 9, 3, 11), free, (1, 2))
+    u, w = _fields((3, B, nc + 1, nt + 1, ns + 1), free, (1, 2))
     u = u * 1e-3
 
     def sa(gg):

@@ -35,11 +35,13 @@ from tpufem_torch.profile_nonlinear import (
     EDGE_RES,
     EDGE_ROWS_RES,
     KERNEL_NAMES,
+    check_and_time,
     launch_tile,
     measure as measure_nonlinear,
     measure_vjp,
     nl_calls,
     nl_inputs,
+    vjp_inputs,
 )
 from tpufem_torch.profile_solve import seeded_batch
 from tpufem_torch.sets import build_boundary_sets
@@ -757,9 +759,44 @@ def test_nonlinear_kernels_match_plain(cuda, grid, u):
 @pytest.mark.parametrize("grid", list(DESIGN_GRIDS))
 def test_geometry_vjp_kernel_matches_plain(cuda, grid, B):
     """Kernel K (strain_apply_geo_vjp) against its plain version in f64
-    within 1e-12, one launch per call, the same bits twice."""
+    within 1e-12, one launch per call, the same bits twice; DOF100K at B=4
+    is the adjoint's largest launch."""
     rec = measure_vjp(grid, DESIGN_GRIDS[grid], seeded_batch(8)[:B], cuda, timed=False)
     assert rec["rel_err"] <= 1e-12
+
+
+def _energy_calls(res, p4, dev, seed=0):
+    """(kernel J, its plain version, operands) on vjp_inputs' geometry and u."""
+    geo, u, _, free = vjp_inputs(res, p4, dev, seed)
+    return (lambda: tnl.stvk_energy(res, geo, u, free, LAM, MU),
+            lambda: tnl.stvk_energy_plain(res, geo, u, free, LAM, MU), (*geo, u, free))
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("grid", list(DESIGN_GRIDS))
+def test_energy_kernel_matches_plain(cuda, grid, B):
+    """Kernel J (stvk_energy) on B lanes against its plain version in f64
+    within 1e-12 relative, one launch per call, the same bits twice."""
+    res = DESIGN_GRIDS[grid]
+    fn, plain, ops = _energy_calls(res, seeded_batch(8)[:B], cuda)
+    rec = check_and_time("stvk_energy", grid, fn, plain, ops, ops[1].numel(), timed=False)
+    assert rec["rel_err"] <= 1e-12
+
+
+def test_energy_kernel_at_two_shapes_in_turn(cuda):
+    """Kernel J called at shapes of other block sizes and partial counts in
+    turn gives each shape its own bits (a ticket or partials sized for the
+    wrong shape would not), and leaves the device's ticket at 0."""
+    shapes = [(STRAIN_GRIDS["12x10x3-le-weld"], 1), (DOF100K, 1), (MEDIUM, 4)]
+    calls = [_energy_calls(res, seeded_batch(8)[:B], cuda, seed=k)
+             for k, (res, B) in enumerate(shapes)]
+    first = [fn().clone() for fn, _, _ in calls]
+    for (fn, plain, _), want in zip(calls[::-1] + calls, first[::-1] + first):
+        got = fn()
+        assert torch.equal(got, want)
+        ref = plain()
+        assert abs(got.item() - ref.item()) <= 1e-12 * abs(ref.item())
+    assert tnl._TICKETS[torch.device("cuda", torch.cuda.current_device())].item() == 0
 
 
 @pytest.mark.parametrize("kernel", list(KERNEL_NAMES))

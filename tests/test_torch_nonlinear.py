@@ -1,8 +1,9 @@
 """Port parity: the TL-StVK grid functions of tpufem_torch.fem.nonlinear (the
 plain versions kernels H, I and J are held to on the card) against
 tpufem.fem.nonlinear, on the CPU at tpufem's test grid 8x10x2 (LE spacing, TE
-floor) and its sharp-TE variant, on the same seeded inputs; the force and the
-tangent also at the edges of kernels H's and I's tiles (EDGE_GRIDS).
+floor) and its sharp-TE variant, on the same seeded inputs; the force, the
+tangent and the energy also at the edges of kernels H's and I's tiles
+(EDGE_GRIDS).
 
 - stvk_internal_force and the tangent (tpufem's jax.jvp against the port's
   torch.func.jvp) within 1e-12 of the largest entry; the energy within 1e-13
@@ -95,6 +96,7 @@ def test_tangent_matches_tpufem_jvp(grid):
     _close(got.numpy(), ref, 1e-12)
 
 
+@pytest.mark.parametrize("grid", [*GRIDS, *EDGE_GRIDS], indirect=True)
 def test_energy_matches_tpufem(grid):
     res, jres, geo, jgeo, free = grid
     u = _field(res, free, 4, 1e-3)

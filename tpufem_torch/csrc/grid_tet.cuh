@@ -1,5 +1,6 @@
 // The structured wing grid's cell layout, shared by kernels B (strain_apply),
-// F (element_stress), G (geom_apply), H (stvk_force) and I (stvk_tangent).
+// F (element_stress), G (geom_apply), H (stvk_force), I (stvk_tangent), J
+// (stvk_energy) and K (strain_geo_vjp).
 //
 // Every hex cell (ci, ck, cj) of the grid is cut into the 6 Kuhn tets of the
 // unit hex. Hex corner q = 0..7 sits at node (ci + corner_di(q), ck +
@@ -12,6 +13,8 @@
 
 #pragma once
 
+#include <cuda_runtime.h>
+
 namespace grid_tet {
 
 // Corner a = 0..3 of Kuhn tet t = 0..5, as a hex corner. With t and a known
@@ -20,6 +23,15 @@ __device__ __forceinline__ int kuhn(int t, int a) {
   constexpr int k[6][4] = {{0, 1, 2, 6}, {0, 2, 3, 6}, {0, 3, 7, 6},
                            {0, 7, 4, 6}, {0, 4, 5, 6}, {0, 5, 1, 6}};
   return k[t][a];
+}
+
+// The same for a t known only at run time (a thread per tet, kernels J and
+// K): corners 0 and 6 are every tet's, corners 1 and 2 walk the cycle 1 2 3 7
+// 4 5 around the 0-6 diagonal (nibble n of kCycle is its n-th corner, the
+// first repeated at n = 6). With a known at compile time it is one shift.
+__device__ __forceinline__ int kuhn_rt(int t, int a) {
+  constexpr unsigned kCycle = 0x1547321u;
+  return a == 0 ? 0 : a == 3 ? 6 : static_cast<int>((kCycle >> (4 * (t + a - 1))) & 15u);
 }
 
 __device__ __forceinline__ int corner_di(int q) { return (q & 3) == 1 || (q & 3) == 2; }
@@ -42,6 +54,17 @@ __device__ __forceinline__ int weld_k(int i, int k, int NI, int weld_te) {
 template <bool kIdentity, typename T>
 __device__ __forceinline__ T masked_store(T f, T fr, T u) {
   return kIdentity ? f * fr + u * (T(1) - fr) : f * fr;
+}
+
+// The SMs of the current device, asked once per process (one kind of card)
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 1;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
 }
 
 }  // namespace grid_tet

@@ -211,16 +211,7 @@ __device__ __forceinline__ void run(const Operands<T>& p, Tile tile, const Body&
   }
 }
 
-// The SMs of the current device, asked once per process (one kind of card)
-inline int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 1;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v;
-  }();
-  return n;
-}
+using grid_tet::sm_count;
 
 // Launches `kernel` (a __global__ that runs run<T, ...>) on operands a;
 // returns cudaGetLastError() after the launch, or cudaErrorInvalidValue where

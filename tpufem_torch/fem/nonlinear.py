@@ -12,8 +12,9 @@ convention H[d,e] = sum_a g_a[d] u_a[e] = d u_e / d X_d:
   residual r(u) = s f_ext - f_int(u)   (dead pressure load, scale s)
 
 The three grid functions on the Newton path have hand-written CUDA kernels,
-f64 only, each one launch per call on kernel B's cell-centric walk or a
-thread per cell; on a CPU tensor each runs its plain version:
+f64 only, each one launch per call (H and I on the tiled schedule of
+``csrc/grid_tile.cuh``, J a thread per Kuhn tet); on a CPU tensor each runs
+its plain version:
 
 - ``stvk_internal_force``: kernel H (``csrc/stvk_force.cu``), welds, root
   mask and Dirichlet identity included, as kernel B wraps the linear
@@ -184,10 +185,11 @@ def stvk_energy(res: WingMeshResolution, geo, u, free, lam: float, mu: float):
     0-d tensor; grad_u W == stvk_internal_force on free rows, the hyperelastic
     consistency that makes the tangent symmetric.
 
-    A CPU tensor takes stvk_energy_plain; a CUDA f64 tensor launches kernel J,
-    whose sum has a fixed order (two calls give the same bits); other inputs
-    raise. Calls on one device share its ticket counter, so they must not run
-    on two streams at once."""
+    A CPU tensor takes stvk_energy_plain; a CUDA f64 tensor launches kernel J
+    (a thread per lane, cell and Kuhn tet), whose sum has a fixed order (two
+    calls give the same bits); other inputs raise. The partials are sized by
+    the library's own tpufem_stvk_energy_blocks. Calls on one device share its
+    ticket counter, so they must not run on two streams at once."""
     if not u.is_cuda:
         return stvk_energy_plain(res, geo, u, free, lam, mu)
     check_f64_grid_operands("J (stvk_energy)", res, geo, u, free)

