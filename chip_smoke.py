@@ -99,16 +99,37 @@ trained checkpoint exists). Along the way:
      (tpufem_torch/reference/optimize_wing_24x32x2_steps5.json; the record's
      history keeps every fifth step only) and row 0 against the record, at
      the record's rounding;
-  9. prints the wall time of every phase, the peak device memory of the
-     phase-3 solve, the training phase, the gather solve, the dynamics and
-     the design phase, the kernels' JSON line, then {"ok": true, "device":
-     {...}}.
+  9. the tet10 path: (a) kernels L (strain_apply10, the doubled-grid tet10
+     operator) and M (prolong_p / restrict_p, the P1 <-> P2 transfers)
+     against their plain versions at the flagship's DOF1M_TET10 B = 1, the
+     tet10 modal CLI's 32x40x4 q = 12 and a sharp-TE 16x24x4 B = 2, f64 and
+     f32, bitwise repeatable, exactly 1 launch and 1 device activity per
+     call, event / device (repeated and with the L2 flushed) / plain times,
+     the bound (bytes or operations) and M's library time (torch.sparse.mm
+     of the transfer matrix); (b) kernel B at every level of the flagship's
+     tet4 V-cycle (96x128x8, its first launches at n_thick = 8); then,
+     launch counters zeroed: (c) the flagship CLI, `solve_tet10_1m --refine
+     8` (2,511,147 DOF): converged, TRUE f64 rel <= 1e-5 on the device and
+     recomputed on the CPU by strain_apply10_plain, the 80-bit xprec rel <=
+     1e-5, max von Mises within 1e-3 of results/flagship_tet10_2p5mdof.json's
+     54.924 MPa, tip u_z < 0, root vM > 3x tip vM; iterations, timing and
+     peak device memory as information; (d) modal_analysis --element tet10 at
+     its defaults (32x40x4): converged, first mode spanwise bending,
+     frequencies beside phase 7's tet4 ones; (e) WingModal10 at 8x10x2 equal
+     to scipy shift-invert of assemble_K10 with lumped_mass10 to 1e-7;
+     (f) kernel E against its plain version on the flagship solver's own
+     plans and operands: the T6 midside loads (C = 3) and the nodal stress
+     numerator (C = 6) and denominator (C = 1), with phase 6's bars;
+ 10. prints the wall time of every phase, the peak device memory of the
+     phase-3 solve, the training phase, the gather solve, the dynamics, the
+     design and the tet10 phase, the kernels' JSON line, then {"ok": true,
+     "device": {...}}.
 
 Every phase raises on failure; the script then exits nonzero and prints no
 result. Usage: python3 chip_smoke.py   (one card, no arguments)
 
-Its phases took 181 s (phase 7: 37 s, phase 8: 59 s) on an
-NVIDIA H100 80GB HBM3 at 700 W.
+Its phases took 218-252 s (phase 7: 31-38 s, phase 8: 69-87 s, phase 9:
+40-42 s) on an NVIDIA H100 80GB HBM3 at 700 W.
 """
 
 from __future__ import annotations
@@ -374,6 +395,12 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += run_design(dev, DOF100K, state)
     walls["8 design path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kernels += run_tet10(dev, state)
+    walls["9 tet10 path"] = time.perf_counter() - t0
+    e = next(k for k in kernels if k["name"] == "csr_segment_sum")
+    e["tet10_launches"] = state["tet10_csr"]["launches"]
+    e["shapes"].update(state["tet10_csr"]["shapes"])
     print(json.dumps({"phase_wall_s": walls}))
     print(json.dumps({"peak_device_memory_bytes": state["peak_bytes"]}))
     print(json.dumps({"kernels": kernels}))
@@ -1217,6 +1244,7 @@ def run_dynamics(dev, res, state):
               f"{rep['converged']}; largest relative difference from {MODAL_REPORT.name}: "
               f"{dm:.3e} (bar 1e-6); CLI wall {wall:.3f} s, solve {rep['wall_s']} s")
         require(rep["converged"] and dm <= 1e-6, f"modal vs tpufem's record: {dm:.3e}")
+        state["modal_tet4_freqs"] = fm.tolist()
         for i, fi in enumerate(fm):
             require_glb(root / "modal" / f"mode_{i + 1:02d}_{fi:.1f}hz.glb")
 
@@ -1479,6 +1507,214 @@ def run_design(dev, res, state):
             "shapes": {lbl: {k: r[k] for k in ("grid", "B", "max_abs_err", "ms", "plain_ms",
                                               "bound_us", "device_us", "device_us_cold", "share")}
                        for (kn, lbl), r in recs.items() if kn == name}})
+    return entries
+
+
+# ---------------------------------------------------------------- phase 9
+
+TET10_RECORD = REPO / "results" / "flagship_tet10_2p5mdof.json"
+TET10_MODAL_RES = (8, 10, 2)  # tpufem's WingModal10 test grid
+
+
+def tet10_counters():
+    from tpufem_torch.fem import stencil as st
+    from tpufem_torch.fem import tet10_stencil as ts
+    from tpufem_torch.ops import csr_segment_sum as cs
+
+    return {"strain_apply10": ts.strain_apply10, "prolong_p": ts.prolong_p,
+            "restrict_p": ts.restrict_p, "strain_apply": st.strain_apply,
+            "csr_segment_sum": cs.csr_segment_sum}
+
+
+def tet10_true_residual_cpu(res, p4, u_nodes, upper_t6, lam, mu):
+    """The flagship's TRUE f64 relative residual recomputed on the CPU: the
+    f64 geometry and T6 loads built there, the operator strain_apply10_plain."""
+    from tpufem_torch.fem import tet10_stencil as ts
+    from tpufem_torch.fem.tet10 import pressure_loads_t6
+
+    X = ts.nodes_grid2(res, torch.tensor([p4], dtype=torch.float64), torch.float64)
+    geo = ts.cell_geometry2(res, X)
+    free2 = ts.free_mask2(res, torch.float64)
+    n10 = ts.from_grid2(res, X)
+    bg = ts.to_grid2(res, pressure_loads_t6(n10, upper_t6, PRESSURE, n10.shape[0])) * free2
+    r = bg - ts.strain_apply10_plain(res, geo, ts.to_grid2(res, torch.as_tensor(u_nodes)),
+                                     free2, lam, mu)
+    return float(torch.sqrt((r * r).sum()) / torch.sqrt((bg * bg).sum()))
+
+
+def run_tet10(dev, state):
+    """Phase 9: kernels L and M at the tet10 path's shapes, kernel B at every
+    level of the flagship's tet4 V-cycle, then, launch counters zeroed, the
+    flagship CLI (solve_tet10_1m --refine 8 at DOF1M_TET10), the modal CLI
+    with --element tet10 at its defaults and WingModal10 against scipy.
+    Returns kernels L's and M's report entries."""
+    import scipy.sparse as ssp
+    import scipy.sparse.linalg as spla
+
+    from tpufem_torch import profile_tet10 as pt
+    from tpufem_torch.fem.material import Material, lame_params
+    from tpufem_torch.fem.modal import WingModal10
+    from tpufem_torch.fem.refsolve import assemble_K10
+    from tpufem_torch.fem.stencil_mg import hierarchy_resolutions
+    from tpufem_torch.fem import tet10_stencil as ts
+    from tpufem_torch.fem.tet10 import (
+        stress_nodal_terms,
+        t6_midside_forces,
+        tet10_setup,
+        tet10_upper_t6,
+    )
+    from tpufem_torch.mesher import DOF1M_TET10, WingMeshResolution
+    from tpufem_torch.scripts import modal_analysis, solve_tet10_1m
+
+    lam, mu = lame_params(Material())
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    # ---- 9a. kernels L and M at the flagship's, the modal CLI's and a sharp-TE shape
+    recs = {}
+    for label, (res, p4s) in pt.SHAPES.items():
+        recs[label] = {**{f"strain_apply10 {d}": r
+                          for d, r in pt.measure_L(label, res, p4s, dev).items()},
+                       **pt.measure_M(label, res, len(p4s), dev)}
+        for rec in recs[label].values():
+            print(pt.line(rec) + f" [{smi}]", flush=True)
+    # ---- 9b. kernel B at every level of the flagship's tet4 V-cycle (n_thick 8)
+    for r in hierarchy_resolutions(DOF1M_TET10)[:-1]:
+        v = check_strain_apply_level(dev, r, np.array([pt.FLAGSHIP_P4]), lam, mu)
+        print(f"[kernel B] {r.key} B=1: f64 max|err| {v['f64']['max_abs_err']:.3e} (scale "
+              f"{v['f64']['scale']:.3e}, bar 1e-12 rel); f32 err vs f64 "
+              f"{v['f32']['max_abs_err']:.3e} (plain f32 {v['f32']['plain_max_abs_err']:.3e}, "
+              f"bar 2x); bitwise repeatable in both", flush=True)
+
+    counters = tet10_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    by_case = {}
+
+    def mark(case):
+        by_case[case] = {n: c.launches - sum(b[n] for b in by_case.values())
+                         for n, c in counters.items()}
+
+    # ---- 9c. the flagship CLI: the record's command without --chunk
+    t0 = time.perf_counter()
+    rec, extra = solve_tet10_1m.run(["--refine", "8", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mark("flagship CLI")
+    d = rec["detail"]
+    ref = json.loads(TET10_RECORD.read_text())["detail"]
+    out, solver, mesh = extra["out"], extra["solver"], extra["mesh"]
+    u = out.u[:, :, 0]
+    res = solver.res
+    ut6 = tet10_upper_t6(solver.t10, extra["sets"].surf_upper_faces)
+    rel_cpu = tet10_true_residual_cpu(res, pt.FLAGSHIP_P4, u[:, :, None], ut6, lam, mu)
+    n10 = solver.t10.nodes10(mesh.nodes)
+    y, span = n10[:, 1], n10[:, 1].max()
+    uz_tip = u[y > 0.95 * span, 2].mean()
+    vm = out.vm[:, 0]
+    vm_root, vm_tip = vm[y < 0.25 * span].mean(), vm[y > 0.75 * span].mean()
+    dvm = abs(d["max_vm_mpa"] - ref["max_vm_mpa"]) / ref["max_vm_mpa"]
+    print(f"[tet10] flagship CLI at {res.key} ({d['dof']} DOF, {d['num_tet10']} tets) on "
+          f"{d['device']} [{smi}]: {d['iters']} iterations (tpufem's record: {ref['iters']}), "
+          f"converged {d['converged']}, TRUE f64 rel {d['rel_residual']:.3e} on the device, "
+          f"{rel_cpu:.3e} recomputed on the CPU, 80-bit xprec {d['xprec_rel_residual']:.3e} "
+          f"(record {ref['xprec_rel_residual']:.3e}); max vM {d['max_vm_mpa']} MPa (record "
+          f"{ref['max_vm_mpa']}, rel {dvm:.2e}); tip u_z {uz_tip:.4e} m, root vM "
+          f"{vm_root:.4e} vs tip {vm_tip:.4e}; CLI wall {wall:.3f} s, solve "
+          f"{rec['value']} s, timing {d['timing_s']}, peak device memory "
+          f"{d['peak_device_memory_bytes']} B", flush=True)
+    require(d["converged"] and d["rel_residual"] <= 1e-5, f"flagship: {d}")
+    require(rel_cpu <= 1e-5, f"flagship TRUE rel on the CPU {rel_cpu:.3e}")
+    require(d["xprec_rel_residual"] <= 1e-5, f"flagship xprec {d['xprec_rel_residual']:.3e}")
+    require(dvm <= 1e-3, f"flagship max vM {d['max_vm_mpa']} vs the record's {ref['max_vm_mpa']}")
+    require(uz_tip < 0 and vm_root > 3.0 * vm_tip and np.isfinite(u).all(),
+            f"flagship physics: tip u_z {uz_tip:.3e}, root vM {vm_root:.3e}, tip {vm_tip:.3e}")
+    state["tet10"] = {"cli": rec, "true_rel_cpu": rel_cpu}
+
+    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="smoke_tet10_") as root:
+        # ---- 9d. the modal CLI with --element tet10 at its defaults
+        t0 = time.perf_counter()
+        rep, mout, wm = modal_analysis.run(["--element", "tet10", "--device", "cuda",
+                                            "--out", str(Path(root) / "modal10")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mark("modal CLI tet10")
+        f4 = state.get("modal_tet4_freqs", [])
+        print(f"[modal tet10] CLI defaults {rep['resolution']} ({rep['n_dof']} DOF): "
+              f"{rep['freqs_hz']} Hz beside tet4's {f4} Hz; {rep['sweeps']} sweeps, "
+              f"{mout.inner_iters} block-CG iterations, converged {rep['converged']}, "
+              f"eig_residual {[f'{r:.2e}' for r in rep['eig_residual']]}; CLI wall {wall:.3f} s, "
+              f"solve {rep['wall_s']} s [{smi}]", flush=True)
+        require(rep["converged"], "modal CLI tet10 did not converge")
+        require_spanwise_bending(wm.nodes10, mout.modes[:, :, 0])
+
+    # ---- 9e. WingModal10 at tpufem's test grid against scipy shift-invert
+    t0 = time.perf_counter()
+    wm = WingModal10(WingMeshResolution(*TET10_MODAL_RES, 0.006, "le"), (1.2, 0.35, 10.0, 0.10))
+    mres = wm.solve(n_modes=4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mark("WingModal10 8x10x2")
+    K = assemble_K10(wm.nodes10, wm.t10.tet10, Material())
+    free = np.repeat(wm.free_rows, 3)
+    w = spla.eigsh(K[free][:, free], k=4, M=ssp.diags(np.repeat(wm.mass, 3)[free]), sigma=0,
+                   which="LM", return_eigenvectors=False)
+    f_ref = np.sqrt(np.sort(w)) / (2 * np.pi)
+    df = float(np.max(np.abs(mres.freqs_hz - f_ref) / f_ref))
+    print(f"[modal tet10] WingModal10 {TET10_MODAL_RES}: {mres.freqs_hz.tolist()} Hz vs scipy "
+          f"shift-invert {f_ref.tolist()}: largest relative difference {df:.3e} (bar 1e-7); "
+          f"{mres.sweeps} sweeps, wall {wall:.3f} s", flush=True)
+    require(mres.converged and df <= 1e-7, f"WingModal10 vs scipy: {df:.3e}")
+
+    state["peak_bytes"]["tet10 phase"] = torch.cuda.max_memory_allocated()
+    launches = {n: c.launches for n, c in counters.items()}
+    print(f"[tet10] kernel launches (9c-9e): {launches}; by case {by_case}", flush=True)
+    for name in ("strain_apply10", "prolong_p", "restrict_p", "strain_apply", "csr_segment_sum"):
+        require(launches[name] > 0, f"{name} was not launched on the tet10 path")
+
+    # ---- 9f. kernel E at the flagship's own plans and operands (after the
+    # counts are read: these launches are comparisons): the T6 midside loads
+    # (C=3) on the solver's t6 plan, the nodal stress numerator (C=6) and
+    # denominator (C=1) on its connectivity plan
+    conn, cplan = solver._conn()
+    X64 = ts.nodes_grid2(res, torch.tensor([pt.FLAGSHIP_P4], dtype=torch.float64, device=dev),
+                         torch.float64)
+    f6 = t6_midside_forces(ts.from_grid2(res, X64), ut6, PRESSURE)
+    Jinv, vols = tet10_setup(torch.as_tensor(n10, dtype=torch.float64, device=dev), conn)
+    num, den = stress_nodal_terms(Jinv, vols, conn, torch.as_tensor(u, device=dev), lam, mu)
+    state["tet10_csr"] = {
+        "launches": launches["csr_segment_sum"],
+        "shapes": {"tet10 T6 loads C=3": check_csr_sum("tet10 T6 midside loads C=3", f6,
+                                                       solver._t6_plan(ut6)),
+                   "tet10 stress num C=6": check_csr_sum("tet10 nodal stress numerator C=6",
+                                                         num, cplan),
+                   "tet10 stress den C=1": check_csr_sum("tet10 nodal stress denominator C=1",
+                                                         den, cplan)}}
+    del Jinv, vols, num, den, f6
+    shape_of = {"flagship CLI": "DOF1M_TET10 B=1", "modal CLI tet10": "32x40x4 q=12"}
+    entries = []
+    for name in ("strain_apply10", "prolong_p", "restrict_p"):
+        shape_n = {case: n[name] for case, n in by_case.items() if n[name]}
+        top = max((c for c in shape_n if c in shape_of), key=shape_n.get)
+        rec, rec64 = (recs[shape_of[top]][f"{name} f32"], recs[shape_of[top]][f"{name} f64"])
+        entries.append({
+            "name": name, "route": "cuda", "source": pt.SOURCES[name],
+            "design": pt.DESIGNS[name], "replaces": pt.REPLACES[name],
+            "kernel_letter": pt.LETTERS[name], "launches": launches[name],
+            "shape": shape_of[top], "dtype": "f32", "launches_by_shape": shape_n,
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms")},
+            "bound_ms": rec["bound_us"] / 1e3, "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+            **{k: rec[k] for k in ("device_us", "device_us_cold", "share", "share_repeated",
+                                   "activities", "bytes", "flops")},
+            "f64": {k: rec64[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_us",
+                                          "bound_by", "device_us", "device_us_cold", "share",
+                                          "library_ms")},
+            "shapes": {lbl: {k: {f: r[f] for f in ("grid", "B", "max_abs_err", "ms", "plain_ms",
+                                                   "bound_us", "bound_by", "device_us",
+                                                   "device_us_cold", "share", "library_ms")}
+                             for k, r in rs.items() if k.startswith(name)}
+                       for lbl, rs in recs.items()}})
     return entries
 
 

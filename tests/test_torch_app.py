@@ -11,8 +11,8 @@ and the dynamics CLIs on tpufem's test grid 8x10x2.
   missing matplotlib raises a clear ImportError; dynamics_entries reads the
   port's dynamics reports as tpufem's does; the static dashboard is written;
 - each dynamics CLI runs with --device cpu and writes tpufem's report keys
-  (read from tpufem's scripts), --element tet10 exits "not ported", and the
-  default device raises without a card.
+  (read from tpufem's scripts), and the default device raises without a card
+  (--element tet10 too).
 """
 
 import ast
@@ -192,9 +192,13 @@ def test_dynamics_entries_match_tpufem(dynamics):
 
 
 def test_modal_cli_refuses_tet10_and_defaults_to_the_card(monkeypatch, capsys):
-    assert modal_analysis.main(["--element", "tet10", "--device", "cpu"]) == 2
-    assert "not ported: tet10" in capsys.readouterr().err
+    """--element tet10 is ported now (tests/test_torch_modal10.py runs it on
+    the CPU); like the tet4 family, its default device raises without a card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        modal_analysis.main(["--element", "tet10", "--n_chord", "8", "--n_span", "10",
+                             "--n_thick", "2"])
+    assert "not ported" not in capsys.readouterr().err
     for mod in (modal_analysis, buckling_analysis, prestress_sweep):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mod.main(["--n_chord", "8", "--n_span", "10", "--n_thick", "2"])

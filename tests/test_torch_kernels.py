@@ -890,3 +890,93 @@ def test_nonlinear_on_cuda_matches_cpu(cuda):
     assert all(n > c for n, c in zip([tnl.stvk_internal_force.launches,
                                       tnl.stvk_tangent_apply.launches,
                                       tnl.stvk_energy.launches], counts))
+
+
+# ------------------------------------------------- kernels L and M (tet10)
+
+TET10_GRIDS = {"8x6x2-floored": WingMeshResolution(8, 6, 2, 0.006, "le"),
+               "6x4x2-sharp-te": WingMeshResolution(6, 4, 2, 0.0, "le"),
+               "10x18x8-tiles": WingMeshResolution(10, 18, 8, 0.006, "le")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("B", [1, 12])
+@pytest.mark.parametrize("grid", list(TET10_GRIDS))
+def test_strain_apply10_kernel_matches_plain(cuda, grid, B, dtype):
+    """Kernel L against strain_apply10_plain (f64 1e-12, f32 1e-5 of the
+    largest entry), one launch, the same bits twice, one device activity."""
+    from tpufem_torch.fem import tet10_stencil as tts
+    from tpufem_torch.profile_tet10 import l_inputs
+
+    res = TET10_GRIDS[grid]
+    geo, u, free2 = l_inputs(res, np.tile(P4[:1], (B, 1)), dtype, cuda, seed=B)
+    ref = tts.strain_apply10_plain(res, geo, u, free2, LAM, MU)
+    before = tts.strain_apply10.launches
+    y = tts.strain_apply10(res, geo, u, free2, LAM, MU)
+    assert tts.strain_apply10.launches == before + 1
+    assert torch.equal(y, tts.strain_apply10(res, geo, u, free2, LAM, MU))  # no atomics
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert (y - ref).abs().max().item() <= tol * ref.abs().max().item()
+    r = device_time(lambda: tts.strain_apply10(res, geo, u, free2, LAM, MU), "strain_apply10")
+    assert r["launches"] == 1 and r["activities"] == 1, r
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("B", [1, 12])
+@pytest.mark.parametrize("grid", list(TET10_GRIDS))
+def test_p_transfer_kernels_match_plain(cuda, grid, B, dtype):
+    """Kernel M's prolongation and restriction against their plain versions
+    (f64 1e-14, f32 1e-6 of the largest entry: the weld rows' column sums run
+    in another order), one launch each, the same bits twice."""
+    from tpufem_torch.fem import tet10_stencil as tts
+
+    res = TET10_GRIDS[grid]
+    NI, NK, NJ = res.n_chord + 1, res.n_thick + 1, res.n_span + 1
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    x4 = torch.randn((3, B, NI, NK, NJ), generator=gen, device=cuda, dtype=dtype)
+    r2 = torch.randn((3, B, *tts._doubled(res)), generator=gen, device=cuda, dtype=dtype)
+    dup2, free2 = tts.dup_mask2(res, dtype, cuda), tts.free_mask2(res, dtype, cuda)
+    free4 = torch.ones((1, 1, 1, 1, NJ), dtype=dtype, device=cuda)
+    free4[..., 0] = 0.0
+    for fn, plain, counter in (
+            (lambda: tts.prolong_p(res, x4, dup2, free2),
+             lambda: tts.prolong_p_plain(res, x4, dup2, free2), tts.prolong_p),
+            (lambda: tts.restrict_p(res, r2, free4),
+             lambda: tts.restrict_p_plain(res, r2, free4), tts.restrict_p)):
+        before = counter.launches
+        y = fn()
+        assert counter.launches == before + 1
+        assert torch.equal(y, fn())
+        ref = plain()
+        tol = 1e-14 if dtype == torch.float64 else 1e-6
+        assert (y - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+def test_tet10_kernels_reject_bad_input(cuda):
+    from tpufem_torch.fem import tet10_stencil as tts
+    from tpufem_torch.profile_tet10 import l_inputs
+
+    res = TET10_GRIDS["8x6x2-floored"]
+    geo, u, free2 = l_inputs(res, P4[:1], torch.float64, cuda)
+    for bad in (u.float(), u.transpose(3, 4), u[:, :, :-1]):
+        with pytest.raises((ValueError, TypeError)):
+            tts.strain_apply10(res, geo, bad, free2, LAM, MU)
+    with pytest.raises(ValueError):
+        tts.strain_apply10(res, geo, u, free2.cpu(), LAM, MU)
+    with pytest.raises(ValueError):
+        tts.prolong_p(res, u, tts.dup_mask2(res, torch.float64, cuda), free2)
+
+
+def test_tet10_solve_on_cuda_matches_cpu(cuda):
+    """Tet10StencilT's f64-outer solve on the card (kernels L, M and B)
+    agrees with the CPU's at B = 2."""
+    from tpufem_torch.fem.tet10_stencil import Tet10StencilT
+
+    res = TET10_GRIDS["8x6x2-floored"]
+    bs = build_boundary_sets(structured_wing_mesh(*P4[0], res))
+    p4 = np.array([P4[0], [1.5, 0.3, 5.0, 0.12]])
+    outs = [Tet10StencilT(res, device=d).solve(p4, bs.surf_upper_faces, tol=1e-7,
+                                               maxiter=2000, outer_f64=True)
+            for d in (cuda, "cpu")]
+    assert all(o.converged.all() for o in outs)
+    assert np.abs(outs[0].u - outs[1].u).max() <= 1e-7 * np.abs(outs[1].u).max()

@@ -9,7 +9,7 @@ reference, on the CPU at tpufem's test grid 8x10x2 (LE spacing, TE floor).
   1e-8); the eigen-residuals it reports below 1e-5; the modes M-orthonormal;
   the first mode spanwise bending;
 - the solvers run on the card unless asked for the CPU, and the tet10
-  family raises "not ported".
+  family's solver builds (tests/test_torch_modal10.py checks it).
 """
 
 import numpy as np
@@ -170,5 +170,7 @@ def test_dynamics_entry_points_default_to_the_card(monkeypatch, entry):
 
 
 def test_tet10_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported: tet10"):
-        tmodal.WingModal10(RES, PARAMS)
+    """The tet10 family is ported now (tests/test_torch_modal10.py holds it to
+    scipy): the constructor builds the solver instead of raising."""
+    wm = tmodal.WingModal10(RES, PARAMS, device="cpu")
+    assert wm.num_nodes == wm.t10.num_nodes and wm.mass.shape == (wm.num_nodes,)

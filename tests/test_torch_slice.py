@@ -172,6 +172,9 @@ def test_port_imports_without_jax():
         "tpufem_torch.scripts.repair_geometry_glb", "tpufem_torch.fem.nonlinear",
         "tpufem_torch.fem.adjoint", "tpufem_torch.scripts.nonlinear_solve",
         "tpufem_torch.scripts.optimize_wing", "tpufem_torch.profile_nonlinear",
+        "tpufem_torch.fem.tet10", "tpufem_torch.fem.tet10_stencil", "tpufem_torch.fem.refsolve",
+        "tpufem_torch.fem.xprec", "tpufem_torch.scripts.solve_tet10_1m",
+        "tpufem_torch.profile_tet10",
     ]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -186,12 +189,14 @@ def test_port_imports_without_jax():
 
 @pytest.mark.parametrize("entry", ["WingStencilT", "solve_wing_case", "Trainer",
                                    "Trainer.load_checkpoint", "WingNonlinear",
-                                   "DifferentiableWingFEM"])
+                                   "DifferentiableWingFEM", "Tet10StencilT", "WingModal10"])
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
     """The port's entry points run on the card unless the caller asks for the
     CPU: with no CUDA device, the default raises instead of falling back."""
     from tpufem_torch.fem.adjoint import DifferentiableWingFEM
+    from tpufem_torch.fem.modal import WingModal10
     from tpufem_torch.fem.nonlinear import WingNonlinear
+    from tpufem_torch.fem.tet10_stencil import Tet10StencilT
     from tpufem_torch.mesher import structured_wing_mesh
     from tpufem_torch.models.train import TrainConfig, Trainer
     from tpufem_torch.sets import build_boundary_sets
@@ -205,6 +210,8 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
         "Trainer.load_checkpoint": lambda: Trainer.load_checkpoint(tmp_path / "none.pt"),
         "WingNonlinear": lambda: WingNonlinear(res, P4[0]),
         "DifferentiableWingFEM": lambda: DifferentiableWingFEM(res, P4[:1]),
+        "Tet10StencilT": lambda: Tet10StencilT(res),
+        "WingModal10": lambda: WingModal10(res, P4[0]),
     }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

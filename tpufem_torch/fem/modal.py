@@ -232,26 +232,32 @@ class GridBlockSolver:
         # killed long ones; here a block solve is one _cg_grid_run of up to
         # inner_maxiter steps
         self.chunk_iters = int(chunk_iters)
-        self.st = WingStencilT(
-            res, device=device,
-            mg_kwargs={"smooth_degree": smooth_degree, "smooth_alpha": smooth_alpha},
-        )
+        self.st = self._engine(res, smooth_degree, smooth_alpha, device)
         self.device = self.st.device
 
         # host-side discretization anchors: welded mesh + clamp set
-        mesh = structured_wing_mesh(*self.p4, res)
-        sets = build_boundary_sets(mesh)
-        self.mesh = mesh
-        self.sets = sets
-        self.num_nodes = len(mesh.nodes)
+        self.mesh = structured_wing_mesh(*self.p4, res)
+        self.sets = build_boundary_sets(self.mesh)
+        self.num_nodes, root = self._nodes_and_root()
         self.free_rows = np.ones(self.num_nodes, bool)
-        self.free_rows[sets.nroot_nodes] = False
+        self.free_rows[root] = False
 
         self._lam64, self._mu64 = lame_params(self.material)
         self._free64 = self.st.free64
         self._mstate = None
         self._X64 = self._geo64 = None
         self._block = None
+
+    def _engine(self, res, smooth_degree, smooth_alpha, device):
+        """The stencil engine whose operator and V-cycle the block CG runs."""
+        return WingStencilT(
+            res, device=device,
+            mg_kwargs={"smooth_degree": smooth_degree, "smooth_alpha": smooth_alpha},
+        )
+
+    def _nodes_and_root(self):
+        """(number of mesh nodes, the clamped root nodes' ids)."""
+        return len(self.mesh.nodes), self.sets.nroot_nodes
 
     # ---- device-side pieces -------------------------------------------------
     def _prepare(self, q: int) -> None:
@@ -402,9 +408,10 @@ class WingModal(GridBlockSolver):
 
     def __init__(self, res: WingMeshResolution, p4, **kw):
         super().__init__(res, p4, **kw)
-        self.mass = lumped_mass(
-            self.mesh.nodes.astype(np.float64), self.mesh.tets, self.material.rho
-        )
+        self.mass = self._lumped_mass()
+
+    def _lumped_mass(self) -> np.ndarray:
+        return lumped_mass(self.mesh.nodes.astype(np.float64), self.mesh.tets, self.material.rho)
 
     def solve(
         self,
@@ -421,12 +428,67 @@ class WingModal(GridBlockSolver):
         return _subspace_smallest(self, k, q, tol, max_sweeps, seed)
 
 
-TET10_NOT_PORTED = "not ported: tet10 (ROADMAP Queue 1 item 7)"
+class WingModal10(WingModal):
+    """tet10 (quadratic) modal analysis on the doubled-grid stencil engine.
 
+    Same algorithm as WingModal — subspace vectors on the trailing batch
+    axis, one p-MG-PCG run per sweep, host Rayleigh-Ritz — with the flagship
+    quadratic element family, on `device` (the card unless the caller asks
+    for the CPU): the f64 operator is kernel L on the device-built f64
+    geometry, the preconditioner the f32 tet10 V-cycle
+    (fem.tet10_stencil.Tet10StencilT), and the mass is HRZ-lumped
+    (fem.refsolve.lumped_mass10; row-sum lumping of the consistent tet10 mass
+    is non-positive at corners). tpufem's jax_enable_x64 check has no
+    counterpart: the card's f64 is native. Only the engine, the node set,
+    the mass, the block CG's ops and the grid maps differ from WingModal."""
 
-class WingModal10:
-    """tpufem's tet10 modal analysis (the doubled-grid stencil engine): not
-    ported yet; constructing it raises."""
+    def _engine(self, res, smooth_degree, smooth_alpha, device):
+        from tpufem_torch.fem.tet10_stencil import Tet10StencilT
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"WingModal10 is {TET10_NOT_PORTED}")
+        return Tet10StencilT(res, dtype=torch.float32, smooth_degree=smooth_degree,
+                             smooth_alpha=smooth_alpha, device=device)
+
+    def _nodes_and_root(self):
+        from tpufem_torch.fem.tet10 import tet10_root_nodes
+
+        self.t10 = self.st.t10
+        self.nodes10 = self.t10.nodes10(self.mesh.nodes.astype(np.float64))
+        return self.t10.num_nodes, tet10_root_nodes(self.t10)
+
+    def _lumped_mass(self) -> np.ndarray:
+        from tpufem_torch.fem.refsolve import lumped_mass10
+
+        return lumped_mass10(self.nodes10, self.t10.tet10, self.material.rho)
+
+    def _prepare(self, q: int) -> None:
+        """The q-lane f32 V-cycle state and f64 geometry (one wing tiled);
+        kept per q, since every sweep asks for it."""
+        if self._block == q:
+            return
+        from tpufem_torch.fem.tet10 import tet10_upper_t6
+
+        st = self.st
+        p4q = np.tile(self.p4[None], (q, 1))
+        lam, mu = (float(torch.tensor(v, dtype=torch.float32))
+                   for v in (self._lam64, self._mu64))
+        upper_t6 = tet10_upper_t6(self.t10, self.sets.surf_upper_faces)
+        geo, Binv, _bg, lmax, smg_state = st.setup(p4q.astype(np.float32), 0.0, upper_t6,
+                                                   lam, mu)
+        geo64, _ = st.system64(p4q, 0.0, upper_t6)
+        self._cg_ops = st.ops64(geo64, geo, Binv, lmax, smg_state, self._lam64, self._mu64,
+                                lam, mu)
+        self._block = q
+
+    def _ops(self):
+        return self._cg_ops
+
+    def _to_grid(self, X_np: np.ndarray):
+        from tpufem_torch.fem.tet10_stencil import to_grid2
+
+        X = torch.as_tensor(X_np, dtype=torch.float64, device=self.device)
+        return to_grid2(self.res, X) * self._free64
+
+    def _from_grid(self, xg) -> np.ndarray:
+        from tpufem_torch.fem.tet10_stencil import from_grid2
+
+        return np.array(from_grid2(self.res, xg).cpu().numpy(), np.float64)

@@ -219,15 +219,17 @@ def strain_apply_plain(res: WingMeshResolution, geo, u, free, lam, mu):
     return y + u * (1.0 - free)
 
 
-def check_grid_operands(name: str, res: WingMeshResolution, u, named: dict) -> None:
-    """Raise unless grid kernel `name` (B, F or G) takes these operands as
-    they are: u (3,B,NI,NK,NJ) on res's grid and every tensor in `named`
-    (name -> (tensor, expected shape)), contiguous, of u's dtype (f32 or f64),
-    on u's device, with every index below 2^31 (the kernels index in 32
-    bits), none of them wanting a gradient (the kernels have no backward)."""
+def check_grid_operands(name: str, res: WingMeshResolution, u, named: dict,
+                        grid: tuple | None = None) -> None:
+    """Raise unless grid kernel `name` takes these operands as they are: u
+    (3,B,NI,NK,NJ) on res's grid (or on `grid` (NI,NK,NJ), the doubled grid
+    of the tet10 kernels) and every tensor in `named` (name -> (tensor,
+    expected shape)), contiguous, of u's dtype (f32 or f64), on u's device,
+    with every index below 2^31 (the kernels index in 32 bits), none of them
+    wanting a gradient (the kernels have no backward)."""
     if u.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kernel {name} takes f32 or f64, got {u.dtype}")
-    NI, NK, NJ = res.n_chord + 1, res.n_thick + 1, res.n_span + 1
+    NI, NK, NJ = grid or (res.n_chord + 1, res.n_thick + 1, res.n_span + 1)
     if u.dim() != 5 or (u.shape[0], *u.shape[2:]) != (3, NI, NK, NJ):
         raise ValueError(f"kernel {name} on the {NI}x{NK}x{NJ} grid: bad u {tuple(u.shape)}")
     for k, (t, want) in {"u": (u, tuple(u.shape)), **named}.items():

@@ -399,6 +399,40 @@ def _cg_grid_run(A, M, dot, cg, tol, maxiter):
     return (x, r, p, z, rz, bn), int(count.max()), rel, rel <= tol
 
 
+def _correction_rounds(A, M, dot, resid, x, total, tol, maxiter, rounds, stop_ratio,
+                       inner_tol, dtype=None, say=None):
+    """Classical iterative refinement judged on a TRUE residual; returns
+    (x, total, rel).
+
+    Each round judges x by `resid(x)` -> (r, per-lane rel). It stops when
+    every lane is within tol, maxiter CG steps are spent, the worst lane
+    contracted by less than `stop_ratio` since the last round (the
+    correction operator's floor) or `rounds` corrections are made. Else the
+    scaled system A c = r/||r|| is solved by the CG (A, M, dot) to
+    `inner_tol` (a number, or a function of the worst rel), in `dtype` where
+    given, and x += ||r|| c. The returned rel is always that of the returned x.
+    """
+    prev = np.inf
+    for rnd in range(rounds + 1):
+        r, rel = resid(x)
+        relmax = float(rel.max())
+        if say is not None:
+            say(f"TRUE f64 rel {relmax:.3e}")
+        if (relmax <= tol or total >= maxiter or relmax > stop_ratio * prev
+                or rnd == rounds):
+            break
+        prev = relmax
+        rn = torch.sqrt((r * r).sum(dim=(0, 2, 3, 4)))
+        safe = torch.where(rn > 0, rn, torch.ones_like(rn))[None, :, None, None, None]
+        rb = (r / safe).to(dtype or r.dtype)
+        ccg = _cg_grid_init(A, M, dot, rb, torch.zeros_like(rb))
+        ctol = inner_tol(relmax) if callable(inner_tol) else inner_tol
+        ccg, k, _, _ = _cg_grid_run(A, M, dot, ccg, ctol, maxiter - total)
+        total += k
+        x = x + ccg[0].to(x.dtype) * safe
+    return x, total, rel
+
+
 MG_DTYPE = torch.float32  # the V-cycle preconditioner's dtype inside the f64 CG
 
 
@@ -556,25 +590,11 @@ class WingStencilT:
         # (device rounds, then host-judged rounds) because its emulated f64
         # could not certify the last decade; native f64 judges on the device.
         t0 = time.perf_counter()
-        x = torch.zeros_like(state["bg64"])
-        total = 0
-        prev = np.inf
-        for rnd in range(self.max_rounds + 1):
-            r, rel = self._resid64(state, x, lam64, mu64)
-            conv = rel <= tol
-            relmax = float(rel.max())
-            if (bool(conv.all()) or total >= maxiter or relmax > 0.9 * prev
-                    or rnd == self.max_rounds):
-                break
-            prev = relmax
-            crtol = 1e-1 if 0.3 * tol / relmax >= 1e-1 else 1e-2
-            rn = torch.sqrt((r * r).sum(dim=(0, 2, 3, 4)))
-            safe = torch.where(rn > 0, rn, torch.ones_like(rn))[None, :, None, None, None]
-            rb = r / safe
-            ccg = _cg_grid_init(A, M, dot, rb, torch.zeros_like(rb))
-            ccg, k, _, _ = _cg_grid_run(A, M, dot, ccg, crtol, maxiter - total)
-            total += k
-            x = x + ccg[0] * safe
+        x, total, rel = _correction_rounds(
+            A, M, dot, lambda x_: self._resid64(state, x_, lam64, mu64),
+            torch.zeros_like(state["bg64"]), 0, tol, maxiter, self.max_rounds, 0.9,
+            lambda relmax: 1e-1 if 0.3 * tol / relmax >= 1e-1 else 1e-2)
+        conv = rel <= tol
         sync()
         tm["solve_s"] = time.perf_counter() - t0
 

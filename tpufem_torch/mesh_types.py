@@ -15,7 +15,8 @@ class Mesh:
 
     nodes (N,3) float64; tets (T,4) int32, positive orientation;
     surf_faces (F,3) int32, outward-oriented; meta: provenance. (tpufem's
-    tet10 connectivity field comes with the tet10 port.)
+    optional tet10 field is not carried: nothing reads it; the quadratic
+    mesh is tpufem_torch.fem.tet10.Tet10Mesh.)
     """
 
     nodes: np.ndarray

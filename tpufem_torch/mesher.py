@@ -71,6 +71,9 @@ COARSE = WingMeshResolution(12, 8, 2)
 MEDIUM = WingMeshResolution(32, 24, 4)
 # the batched-solve configuration: 64x80x6 cells, 109,107 DOF
 DOF100K = WingMeshResolution(64, 80, 6, te_floor_frac=0.006, spacing="le")
+# the tet10 flagship: 96x128x8 cells, 2.51M DOF once promoted to tet10
+# (tpufem_torch.fem.tet10)
+DOF1M_TET10 = WingMeshResolution(96, 128, 8, te_floor_frac=0.006, spacing="le")
 
 
 @dataclass(frozen=True)

@@ -79,6 +79,15 @@ _SIGNATURES = {
     "tpufem_stvk_energy_f64": [_P] * 7 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2 + [_P],
     # (g, vol, u, w, free, gbar, volbar, B, NI, NK, NJ, weld_te, lam, mu, stream)
     "tpufem_strain_geo_vjp_f64": [_P] * 7 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2 + [_P],
+    # (g, vol, u2, free2, y, B, NI2, NK2, NJ2, weld_te, lam, mu, stream)
+    "tpufem_strain_apply10_f32": [_P] * 5 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2 + [_P],
+    "tpufem_strain_apply10_f64": [_P] * 5 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2 + [_P],
+    # (x4, dup2, free2, y2, B, NI, NK, NJ, weld_te, stream)
+    "tpufem_prolong_p_f32": [_P] * 4 + [ctypes.c_int] * 5 + [_P],
+    "tpufem_prolong_p_f64": [_P] * 4 + [ctypes.c_int] * 5 + [_P],
+    # (r2, free4, y4, B, NI, NK, NJ, weld_te, stream)
+    "tpufem_restrict_p_f32": [_P] * 3 + [ctypes.c_int] * 5 + [_P],
+    "tpufem_restrict_p_f64": [_P] * 3 + [ctypes.c_int] * 5 + [_P],
     # (vals, order, starts, out, N, C, stream)
     "tpufem_csr_segment_sum_f32": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
     "tpufem_csr_segment_sum_f64": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],

@@ -6,9 +6,10 @@ subspace iteration eigensolver (tpufem_torch.fem.modal) — block MG-PCG solves
 on the trailing batch axis, host Rayleigh-Ritz — and writes a JSON record
 (tpufem's keys) plus an exaggerated-deflection, |u|-colored GLB per mode for
 the dashboard. --device is the port's (default cuda; raises without one;
---cpu is kept from tpufem and means --device cpu). --element tet10 exits
-with "not ported". --chunk_iters is accepted for tpufem's flag set; a block
-solve is one CG run of up to --inner_maxiter steps.
+--cpu is kept from tpufem and means --device cpu). --element tet10 runs
+WingModal10, the doubled-grid p-multigrid on the quadratic element family.
+--chunk_iters is accepted for tpufem's flag set; a block solve is one CG run
+of up to --inner_maxiter steps.
 
 Example:
     python -m tpufem_torch.scripts.modal_analysis --span 1.2 --chord 0.35 \
@@ -41,6 +42,13 @@ def pressure_loads_np(nodes: np.ndarray, faces: np.ndarray, pressure: float) -> 
 
 
 def main(argv=None) -> int:
+    record, _, _ = run(argv)
+    print(json.dumps(record))
+    return 0
+
+
+def run(argv=None):
+    """The CLI's work: (the report record, the ModalResult, the solver)."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--span", type=float, default=1.2)
     ap.add_argument("--chord", type=float, default=0.35)
@@ -51,8 +59,8 @@ def main(argv=None) -> int:
     ap.add_argument("--n_thick", type=int, default=4)
     ap.add_argument("--n_modes", type=int, default=6)
     ap.add_argument("--element", choices=("tet4", "tet10"), default="tet4",
-                    help="element family: tet4 (grid stencil MG); tet10 is not "
-                         "ported and exits")
+                    help="element family: tet4 (grid stencil MG) or tet10 "
+                         "(doubled-grid p-MG, the flagship family)")
     ap.add_argument("--block", type=int, default=None)
     ap.add_argument("--inner_tol", type=float, default=1e-8)
     ap.add_argument("--inner_maxiter", type=int, default=400)
@@ -90,19 +98,15 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device of the solve (default cuda; raises without one)")
     args = ap.parse_args(argv)
-    if args.element == "tet10":
-        from tpufem_torch.fem.modal import TET10_NOT_PORTED
-
-        print(f"--element tet10 is {TET10_NOT_PORTED}", file=sys.stderr)
-        return 2
     device = device_arg("cpu" if args.cpu else args.device)
 
-    from tpufem_torch.fem.modal import WingModal
+    from tpufem_torch.fem.modal import WingModal, WingModal10
     from tpufem_torch.mesher import WingMeshResolution
 
     res = WingMeshResolution(args.n_chord, args.n_span, args.n_thick, 0.006, "le")
     p4 = (args.span, args.chord, args.sweep, args.thickness)
-    wm = WingModal(
+    cls = WingModal10 if args.element == "tet10" else WingModal
+    wm = cls(
         res, p4,
         inner_tol=args.inner_tol, inner_maxiter=args.inner_maxiter,
         chunk_iters=args.chunk_iters,
@@ -134,12 +138,22 @@ def main(argv=None) -> int:
     (outdir / "modal_report.json").write_text(json.dumps(record, indent=2))
 
     def _pressure_force():
-        mesh = wm.mesh
-        force = pressure_loads_np(
-            mesh.nodes.astype(np.float64),
-            mesh.surf_faces[wm.sets.surf_upper_faces], 5e3,
-        )
-        y = mesh.nodes[:, 1]
+        if args.element == "tet10":
+            import torch
+
+            from tpufem_torch.fem.tet10 import pressure_loads_t6, tet10_upper_t6
+
+            upper_t6 = tet10_upper_t6(wm.t10, wm.sets.surf_upper_faces)
+            force = pressure_loads_t6(torch.as_tensor(wm.nodes10), upper_t6, 5e3,
+                                      wm.num_nodes).numpy()
+            y = wm.nodes10[:, 1]
+        else:
+            mesh = wm.mesh
+            force = pressure_loads_np(
+                mesh.nodes.astype(np.float64),
+                mesh.surf_faces[wm.sets.surf_upper_faces], 5e3,
+            )
+            y = mesh.nodes[:, 1]
         tip = y > y.min() + 0.95 * (y.max() - y.min())
         return force, tip
 
@@ -215,8 +229,12 @@ def main(argv=None) -> int:
         from tpufem_torch.viz.colormaps import normalize_range, viridis
         from tpufem_torch.viz.glb import GLBMesh, write_glb
 
-        base_nodes = wm.mesh.nodes
-        faces = wm.mesh.surf_faces
+        if args.element == "tet10":
+            base_nodes = wm.nodes10
+            faces = wm.t10.surf_t6[:, :3]  # corner triangles of the T6 faces
+        else:
+            base_nodes = wm.mesh.nodes
+            faces = wm.mesh.surf_faces
         scale0 = args.glb_scale
         for i in range(args.n_modes):
             phi = out.modes[:, :, i]
@@ -232,8 +250,7 @@ def main(argv=None) -> int:
                         name=f"mode{i + 1}"),
             )
 
-    print(json.dumps(record))
-    return 0
+    return record, out, wm
 
 
 if __name__ == "__main__":
