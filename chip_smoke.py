@@ -44,7 +44,9 @@ trained checkpoint exists). Along the way:
      exactly 1 launch and 1 device activity per apply, with its event times,
      device time (repeated and with the L2 flushed) and bound; kernel E
      (csr_segment_sum) against its plain version, f32 and f64, with both
-     times; (b) phase 3's batch solved again, on a fresh WingStencilT (its
+     times and the library's on equal work (zeros, then index_add_, every
+     device activity; beside it the adds into a filled buffer, "no fill");
+     (b) phase 3's batch solved again, on a fresh WingStencilT (its
      setup built anew: kernel E's fixed summation order) and on phase 3's
      solver (a hit of its setup cache, setup 0 s): the same iterations and
      bitwise-equal nodes / u / stress6 / vm / residuals; (c)
@@ -106,7 +108,7 @@ trained checkpoint exists). Along the way:
      f32, bitwise repeatable, exactly 1 launch and 1 device activity per
      call, event / device (repeated and with the L2 flushed) / plain times,
      the bound (bytes or operations) and M's library time (torch.sparse.mm
-     of the transfer matrix); (b) kernel B at every level of the flagship's
+     of the transfer matrix, by event and by device time); (b) kernel B at every level of the flagship's
      tet4 V-cycle (96x128x8, its first launches at n_thick = 8); then,
      launch counters zeroed: (c) the flagship CLI, `solve_tet10_1m --refine
      8` (2,511,147 DOF): converged, TRUE f64 rel <= 1e-5 on the device and
@@ -129,7 +131,7 @@ Every phase raises on failure; the script then exits nonzero and prints no
 result. Usage: python3 chip_smoke.py   (one card, no arguments)
 
 Its phases took 218-252 s (phase 7: 31-38 s, phase 8: 69-87 s, phase 9:
-40-42 s) on an NVIDIA H100 80GB HBM3 at 700 W.
+39-45 s) on an NVIDIA H100 80GB HBM3 at 700 W.
 """
 
 from __future__ import annotations
@@ -882,26 +884,35 @@ def check_csr_sum(label, vals64, plan):
     ids = torch.empty_like(plan.seg)  # each row's segment id, in row order
     ids[plan.order.long()] = plan.seg
     acc = torch.zeros_like(out)
-    library_ms = median_ms(lambda: acc.index_add_(0, ids, vals64))
+    # the library on equal work: a zero-filled (N, C) output, then the adds
+    filled = lambda: torch.zeros_like(out).index_add_(0, ids, vals64)  # noqa: E731
+    require(torch.allclose(filled(), ref, rtol=1e-12, atol=1e-12 * scale),
+            f"index_add_ {label} does not compute kernel E's sum")
+    library_ms = median_ms(filled)
+    nofill_ms = median_ms(lambda: acc.index_add_(0, ids, vals64))
     bd = bound(nbytes(vals64, plan.order, plan.starts, out), vals64.numel(), torch.float64)
     bd32 = bound(nbytes(v32, plan.order, plan.starts, o32), v32.numel(), torch.float32)
     dev_us = device_time(lambda: cs.csr_segment_sum(vals64, plan),
                          "csr_segment_sum_kernel")["device_us"]
     dev_us32 = device_time(lambda: cs.csr_segment_sum(v32, plan),
                            "csr_segment_sum_kernel")["device_us"]
-    # every device activity of the library call (it adds into acc: no fill is counted)
-    library_us = device_time(lambda: acc.index_add_(0, ids, vals64), "")["all_device_us"]
+    # every device activity of the library call: the fill and the adds; and,
+    # as before, the adds into a filled buffer alone ("no fill")
+    library_us = device_time(filled, "")["all_device_us"]
+    nofill_us = device_time(lambda: acc.index_add_(0, ids, vals64), "")["all_device_us"]
     share, share32 = bd["bound_ms"] * 1e3 / dev_us, bd32["bound_ms"] * 1e3 / dev_us32
     print(f"[kernel E] csr_segment_sum {label}: R={R} C={C} N={plan.num_segments}: f64 max|err| "
           f"{err:.3e} (scale {scale:.3e}, bar 1e-12 rel), bitwise deterministic; f32 err vs f64 "
           f"{e_k:.3e} (plain f32 {e_p:.3e}, bar 2x); f64 {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
-          f"index_add_ {library_ms:.4f} ms, f32 {ms32:.4f} ms vs plain {plain32:.4f} ms (median "
-          f"of 7); device time per launch (torch.profiler) f64 {dev_us:.2f} us (index_add_ "
-          f"{library_us:.2f} us), bound "
+          f"zeros + index_add_ {library_ms:.4f} ms (no fill {nofill_ms:.4f}), f32 {ms32:.4f} ms "
+          f"vs plain {plain32:.4f} ms (median of 7); device time per launch (torch.profiler) f64 "
+          f"{dev_us:.2f} us (zeros + index_add_ {library_us:.2f} us, every activity; no fill "
+          f"{nofill_us:.2f} us), bound "
           f"{bd['bound_ms'] * 1e3:.2f} us ({bd['bound_by']}): {share:.1%}; f32 {dev_us32:.2f} us, "
           f"bound {bd32['bound_ms'] * 1e3:.2f} us: {share32:.1%}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bd,
-            "device_us": dev_us, "library_device_us": library_us, "share": share, "R": R, "C": C,
+            "device_us": dev_us, "library_device_us": library_us, "library_ms_no_fill": nofill_ms,
+            "library_device_us_no_fill": nofill_us, "share": share, "R": R, "C": C,
             "f32": {"max_abs_err": e_k, "plain_max_abs_err": e_p, "ms": ms32, "plain_ms": plain32,
                     "device_us": dev_us32, "bound_ms": bd32["bound_ms"], "share": share32}}
 
@@ -1707,12 +1718,14 @@ def run_tet10(dev, state):
             "library_ms": rec["library_ms"],
             **{k: rec[k] for k in ("device_us", "device_us_cold", "share", "share_repeated",
                                    "activities", "bytes", "flops")},
+            "library_device_us": rec["library_device_us"],
             "f64": {k: rec64[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_us",
                                           "bound_by", "device_us", "device_us_cold", "share",
-                                          "library_ms")},
+                                          "library_ms", "library_device_us")},
             "shapes": {lbl: {k: {f: r[f] for f in ("grid", "B", "max_abs_err", "ms", "plain_ms",
                                                    "bound_us", "bound_by", "device_us",
-                                                   "device_us_cold", "share", "library_ms")}
+                                                   "device_us_cold", "share", "library_ms",
+                                                   "library_device_us")}
                              for k, r in rs.items() if k.startswith(name)}
                        for lbl, rs in recs.items()}})
     return entries

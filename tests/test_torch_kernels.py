@@ -894,9 +894,14 @@ def test_nonlinear_on_cuda_matches_cpu(cuda):
 
 # ------------------------------------------------- kernels L and M (tet10)
 
+# the last two: L's last chord tile is the sharp trailing edge's lone cell row
+# (its weld rows, its low face shared) at 9x9x4; at 4x3x2 one tile of L holds
+# the grid and M's last row tile holds the trailing edge's weld row alone
 TET10_GRIDS = {"8x6x2-floored": WingMeshResolution(8, 6, 2, 0.006, "le"),
                "6x4x2-sharp-te": WingMeshResolution(6, 4, 2, 0.0, "le"),
-               "10x18x8-tiles": WingMeshResolution(10, 18, 8, 0.006, "le")}
+               "10x18x8-tiles": WingMeshResolution(10, 18, 8, 0.006, "le"),
+               "9x9x4-sharp-te-tile-edges": WingMeshResolution(9, 9, 4, 0.0, "le"),
+               "4x3x2-sharp-te-one-tile": WingMeshResolution(4, 3, 2, 0.0, "le")}
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])

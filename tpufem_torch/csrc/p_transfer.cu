@@ -13,27 +13,42 @@
 // (I, I + o) and takes 0.5 * (x(I) + x(I + o)). The result is multiplied by
 // the duplicate mask dup2 (1,1,NI2,NK2,NJ2) and the root mask free2 (NJ2).
 //
-// restrict_p: its exact transpose, written as a gather. A thread per tet4
-// node (I, K, J) adds to its own position's value half of each incident edge
-// midpoint: for each of the 7 positive lattice offsets o in the order of
-// tpufem_torch/fem/tet10_stencil.py::_POS_OFFSETS, the midpoint 2I + o (node I
-// the edge's low end) and then 2I - o (its high end), each where it lies on
+// restrict_p: its exact transpose, written as a gather. Tet4 node (I, K, J)
+// adds to its own position's value half of each incident edge midpoint: for
+// each of the 7 positive lattice offsets o in the order of
+// tpufem_torch/fem/tet10_stencil.py::_POS_OFFSETS, the midpoint 2I + o (node
+// I the edge's low end) and then 2I - o (its high end), each where it lies on
 // the grid. Then the tet4 weld reduce R (the node at k = 0 of a weld row takes
 // its column's sum in k order, the others zero) and the root mask free4 (NJ).
 // No atomics: two calls give the same bits.
 //
-// Bytes bind both: at the flagship (96 x 128 x 8 cells, B = 1) each reads and
-// writes ~11.5 MB in f64, a ~3.4 us bound, so a launch is close to its
-// launch latency. Every index is 32-bit; the wrappers check that every
-// operand has fewer than 2^31 elements.
+// Bytes bind both: at the flagship (96 x 128 x 8 cells, B = 1) restrict_p
+// reads 20.2 MB and writes 2.7 MB in f64, a 6.85 us bound. Its design: a block
+// per tile of TIr node rows x TJr node columns at full thickness of one
+// component of one lane (the tile is the caller's choice:
+// tpufem_torch/fem/tet10_stencil.py::m_plan). The block stages the doubled
+// rows its nodes read, i2 in [2 I0 - 1, 2 (I0 + TIr) - 1] at every k2 and a
+// contiguous j2 run, into shared memory with 16-byte asynchronous copies, all
+// in flight at once (each staged row keeps its element offset modulo 16
+// bytes, so aligned chunks stay aligned; a chunk may hold up to 15 bytes
+// beyond the run, in the same 16 bytes of the tensor's allocation),
+// then a thread per node sums its share from shared memory, weld rows
+// included, in the same order and with the same operations as a lone thread
+// would; a weld row's nodes leave their shares in shared memory and, after a
+// barrier, the k = 0 thread of each weld column sums them in k order. Every
+// index is 32-bit; the wrappers check that every operand has fewer than 2^31
+// elements.
 
 #include <cuda_runtime.h>
+#include <string.h>
 
 #include "grid_tet.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kNodeCols = 16;   // restrict_p: the most node columns of a tile (a thread each)
+constexpr int kMaxRows = 1024;  // restrict_p: the most staged doubled rows of a tile
 
 // the 7 positive lattice offsets (di, dj, dk), in _POS_OFFSETS' order
 __device__ __forceinline__ int off_di(int o) { return o >= 3; }
@@ -69,46 +84,90 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// sum_{o} the tet4 node (I, K, J)'s share of the doubled field r2 (see above)
 template <typename T>
-__device__ __forceinline__ T restrict_node(const T* r2, int NI, int NK, int NJ, int I, int K,
-                                           int J) {
-  const int NK2 = 2 * NK - 1, NJ2 = 2 * NJ - 1;
-  T v = __ldg(r2 + ((2 * I) * NK2 + 2 * K) * NJ2 + 2 * J);
-#pragma unroll
-  for (int o = 0; o < 7; ++o) {
-    const int di = off_di(o), dj = off_dj(o), dk = off_dk(o);
-    if (I + di < NI && K + dk < NK && J + dj < NJ)
-      v += T(0.5) * __ldg(r2 + ((2 * I + di) * NK2 + 2 * K + dk) * NJ2 + 2 * J + dj);
-    if (I - di >= 0 && K - dk >= 0 && J - dj >= 0)
-      v += T(0.5) * __ldg(r2 + ((2 * I - di) * NK2 + 2 * K - dk) * NJ2 + 2 * J - dj);
-  }
-  return v;
+__device__ __forceinline__ int align_of(const T* p) {  // p's element offset modulo 16 bytes
+  return static_cast<int>((reinterpret_cast<size_t>(p) / sizeof(T)) & (16 / sizeof(T) - 1));
+}
+
+// 16 bytes from global to shared memory, asynchronously (cp.async, through L2
+// only): a thread issues all its copies before it waits for any
+__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+#else
+  memcpy(smem, gmem, 16);
+#endif
+}
+
+__device__ __forceinline__ void copy_async_wait_all() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::);
+#endif
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     restrict_p_kernel(const T* __restrict__ r2, const T* __restrict__ free4, T* __restrict__ y4,
-                      int B, int NI, int NK, int NJ, int weld_te) {
+                      int NI, int NK, int NJ, int weld_te, int TIr, int TJr) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int row_at[kMaxRows];  // staged row (i2 - i2lo) * NK2 + k2: its element j2 at j2 + row_at
+  constexpr int V = 16 / sizeof(T);
   const int NI2 = 2 * NI - 1, NK2 = 2 * NK - 1, NJ2 = 2 * NJ - 1;
   const int plane2 = NI2 * NK2 * NJ2, plane4 = NI * NK * NJ;
-  const int n = blockIdx.x * kThreads + threadIdx.x;
-  if (n >= B * plane4) return;
-  const int J = n % NJ, r = n / NJ;
-  const int K = r % NK, rk = r / NK;
-  const int I = rk % NI, b = rk / NI;
-  const bool weld = grid_tet::weld_row(I, NI, weld_te);
-  const T fr = __ldg(free4 + J);
+  const T* re = r2 + blockIdx.z * plane2;  // blockIdx.z = e * B + b
+  T* ye = y4 + blockIdx.z * plane4;
+  const int I0 = blockIdx.y * TIr, J0 = blockIdx.x * TJr;
+  const int ni = min(TIr, NI - I0), nj = min(TJr, NJ - J0);
+  const int i2lo = max(2 * I0 - 1, 0), i2hi = min(2 * (I0 + ni) - 1, NI2 - 1);
+  const int j2lo = max(2 * J0 - 1, 0), j2hi = min(2 * (J0 + nj) - 1, NJ2 - 1);
+  const int RS = ((2 * TJr + 1 + V - 1 + V - 1) / V) * V;  // a staged row's stride
+  T* S = reinterpret_cast<T*>(smem_raw);                    // [row][RS]
+  T* W = S + (2 * TIr + 1) * NK2 * RS;                      // weld rows' shares [li][K][lj]
+
+  // ---- stage rows (i2, k2), j2 in [j2lo, j2hi], a thread per 16-byte chunk:
+  // the row's element j2 lands at j2 - j2lo + a, a the run's element offset
+  // modulo 16 bytes
+  const int rows = (i2hi - i2lo + 1) * NK2, nseg = j2hi - j2lo + 1, cpr = RS / V;
+  for (int n = threadIdx.x; n < rows * cpr; n += kThreads) {
+    const int row = n / cpr, ch = n - row * cpr, di2 = row / NK2;
+    const T* src = re + ((i2lo + di2) * NK2 + row - di2 * NK2) * NJ2 + j2lo;
+    const int a = align_of(src);
+    if (ch == 0) row_at[row] = row * RS + a - j2lo;
+    if (ch * V < a + nseg) copy16_async(S + row * RS + ch * V, src - a + ch * V);
+  }
+  copy_async_wait_all();
+  __syncthreads();
+
+  // ---- every node's share, in the order of a lone thread's gather: its
+  // position, then for each positive offset o the midpoints 2I + o and 2I - o
+  const int tx = threadIdx.x % kNodeCols, ty = threadIdx.x / kNodeCols;
+  for (int r = ty; r < ni * NK && tx < nj; r += kThreads / kNodeCols) {
+    const int li = r / NK, K = r % NK, I = I0 + li, J = J0 + tx;
+    auto at = [&](int i2, int k2, int j2) { return S[row_at[(i2 - i2lo) * NK2 + k2] + j2]; };
+    T v = at(2 * I, 2 * K, 2 * J);
 #pragma unroll
-  for (int e = 0; e < 3; ++e) {
-    const T* re = r2 + (e * B + b) * plane2;
-    T v = T(0);
-    if (!weld) {
-      v = restrict_node(re, NI, NK, NJ, I, K, J);
-    } else if (K == 0) {
-      for (int kk = 0; kk < NK; ++kk) v += restrict_node(re, NI, NK, NJ, I, kk, J);
+    for (int o = 0; o < 7; ++o) {
+      const int di = off_di(o), dj = off_dj(o), dk = off_dk(o);
+      if (I + di < NI && K + dk < NK && J + dj < NJ) v += T(0.5) * at(2 * I + di, 2 * K + dk, 2 * J + dj);
+      if (I - di >= 0 && K - dk >= 0 && J - dj >= 0) v += T(0.5) * at(2 * I - di, 2 * K - dk, 2 * J - dj);
     }
-    y4[(e * B + b) * plane4 + (I * NK + K) * NJ + J] = v * fr;
+    if (grid_tet::weld_row(I, NI, weld_te))
+      W[(li * NK + K) * nj + tx] = v;
+    else
+      ye[(I * NK + K) * NJ + J] = v * __ldg(free4 + J);
+  }
+  __syncthreads();
+
+  // ---- the weld rows: each column's sum in k order at k = 0, zero above
+  for (int n = threadIdx.x; n < ni * nj; n += kThreads) {
+    const int lj = n % nj, li = n / nj, I = I0 + li, J = J0 + lj;
+    if (!grid_tet::weld_row(I, NI, weld_te)) continue;
+    const T fr = __ldg(free4 + J);
+    T v = T(0);
+    for (int K = 0; K < NK; ++K) v += W[(li * NK + K) * nj + lj];
+    ye[I * NK * NJ + J] = v * fr;
+    for (int K = 1; K < NK; ++K) ye[(I * NK + K) * NJ + J] = T(0) * fr;
   }
 }
 
@@ -126,15 +185,32 @@ int prolong(const void* x4, const void* dup2, const void* free2, void* y, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// restrict_p's shared memory at tile (TIr, TJr) (m_plan computes the same)
+template <typename T>
+size_t restrict_smem(int NK, int TIr, int TJr) {
+  constexpr int V = 16 / sizeof(T);
+  const size_t RS = ((2 * TJr + 1 + V - 1 + V - 1) / V) * V;
+  return ((2 * TIr + 1) * (2 * NK - 1) * RS + static_cast<size_t>(TIr) * NK * TJr) * sizeof(T);
+}
+
+// a Hopper block's, less the static row table and headroom
+constexpr int kMaxSmem = 232448 - 1024 - kMaxRows * 4;
+
 template <typename T>
 int restrict_(const void* r2, const void* free4, void* y4, int B, int NI, int NK, int NJ,
-              int weld_te, void* stream) {
-  if (!grid_ok(B, NI, NK, NJ)) return static_cast<int>(cudaErrorInvalidValue);
-  const int n = B * NI * NK * NJ;
-  restrict_p_kernel<T><<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(r2), static_cast<const T*>(free4), static_cast<T*>(y4), B, NI, NK, NJ,
-      weld_te);
+              int weld_te, int TIr, int TJr, void* stream) {
+  if (!grid_ok(B, NI, NK, NJ) || TIr < 1 || TJr < 1 || TIr > NI || TJr > NJ ||
+      TJr > kNodeCols || (2 * TIr + 1) * (2 * NK - 1) > kMaxRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = restrict_smem<T>(NK, TIr, TJr);
+  if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      restrict_p_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  const dim3 grid((NJ + TJr - 1) / TJr, (NI + TIr - 1) / TIr, 3 * B);
+  restrict_p_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(r2), static_cast<const T*>(free4), static_cast<T*>(y4), NI, NK, NJ,
+      weld_te, TIr, TJr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -152,12 +228,15 @@ extern "C" int tpufem_prolong_p_f64(const void* x4, const void* dup2, const void
   return prolong<double>(x4, dup2, free2, y, B, NI, NK, NJ, weld_te, stream);
 }
 
-extern "C" int tpufem_restrict_p_f32(const void* r2, const void* free4, void* y4, int B, int NI,
-                                     int NK, int NJ, int weld_te, void* stream) {
-  return restrict_<float>(r2, free4, y4, B, NI, NK, NJ, weld_te, stream);
+// (TIr, TJr): restrict_p's tile of tet4 node rows and columns (m_plan).
+extern "C" int tpufem_restrict_p_tiled_f32(const void* r2, const void* free4, void* y4, int B,
+                                           int NI, int NK, int NJ, int weld_te, int TIr, int TJr,
+                                           void* stream) {
+  return restrict_<float>(r2, free4, y4, B, NI, NK, NJ, weld_te, TIr, TJr, stream);
 }
 
-extern "C" int tpufem_restrict_p_f64(const void* r2, const void* free4, void* y4, int B, int NI,
-                                     int NK, int NJ, int weld_te, void* stream) {
-  return restrict_<double>(r2, free4, y4, B, NI, NK, NJ, weld_te, stream);
+extern "C" int tpufem_restrict_p_tiled_f64(const void* r2, const void* free4, void* y4, int B,
+                                           int NI, int NK, int NJ, int weld_te, int TIr, int TJr,
+                                           void* stream) {
+  return restrict_<double>(r2, free4, y4, B, NI, NK, NJ, weld_te, TIr, TJr, stream);
 }

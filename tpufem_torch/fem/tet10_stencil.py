@@ -299,6 +299,54 @@ def strain_apply10_plain(res: WingMeshResolution, geo, u2, free2, lam, mu):
     return y + u2 * (1.0 - free2)
 
 
+L_THREADS = 256  # kernel L's block (csrc/strain_apply10.cu)
+L_CELLS = L_THREADS // 2  # the most cells of its tile: two threads a cell
+L_SLOTS = 36  # a cell's force slots of 3 values: 18 for its tets 0-2, 18 for 3-5
+MAX_DYNAMIC_SMEM = 232448 - 1024  # a Hopper block's shared memory, less 1 KB for static use
+
+
+@dataclass(frozen=True)
+class LPlan:
+    """Kernel L's launch: tiles of TI x TJ cells (chord x span) at full
+    thickness, tiles_i x tiles_j of them per lane, `smem` bytes of force
+    slots each, `rim` partial columns each: its rim, 4 (TI + TJ), then its
+    weld rows, 4 (2 TJ + 1)."""
+
+    TI: int
+    TJ: int
+    tiles_i: int
+    tiles_j: int
+    smem: int
+    rim: int
+
+
+def l_plan(res: WingMeshResolution, itemsize: int) -> LPlan:
+    """Kernel L's tile at res's grid for a dtype of `itemsize` bytes: the
+    widest span run TJ of 8, 4, 2, 1 cells (one 64-byte run of a gradient
+    plane in f64) and then the most chord rows TI such that the tile holds at
+    most L_CELLS cells at full thickness (two threads each); clipped to the
+    grid. Raises where no tile fits."""
+    nc, nt, ns = res.n_chord, res.n_thick, res.n_span
+    for TJ in (8, 4, 2, 1):
+        TJ = min(TJ, ns)
+        TI = min(nc, L_CELLS // (nt * TJ))
+        smem = L_SLOTS * 3 * TI * TJ * nt * itemsize
+        if TI >= 1 and smem <= MAX_DYNAMIC_SMEM:
+            return LPlan(TI, TJ, -(-nc // TI), -(-ns // TJ), smem,
+                         4 * (TI + TJ) + 4 * (2 * TJ + 1))
+    raise ValueError(f"kernel L (strain_apply10) takes at most {L_CELLS} cell layers, not {nt}")
+
+
+_L_TICKETS: dict = {}  # per device: kernel L's per-tile ticket counters, 0 between calls
+
+
+def _l_tickets(device, n: int) -> torch.Tensor:
+    t = _L_TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = _L_TICKETS[device] = torch.zeros(n, dtype=torch.int32, device=device)
+    return t
+
+
 def check_strain_apply10_inputs(res: WingMeshResolution, geo, u2, free2) -> None:
     """Raise unless kernel L takes these inputs as they are: u2 on res's
     doubled grid, g (6,4,3,B,nc,nt,ns), vol (6,B,nc,nt,ns) and the root mask
@@ -320,18 +368,26 @@ def strain_apply10(res: WingMeshResolution, geo, u2, free2, lam: float, mu: floa
     free2 + u2 * (1 - free2), strain first, f32-safe.
 
     A CPU tensor takes strain_apply10_plain. A CUDA tensor launches kernel L,
-    which computes the whole function in one launch; inputs it does not take
-    raise (check_strain_apply10_inputs). lam and mu are Python floats."""
+    which computes the whole function in one launch on the tiles of l_plan;
+    inputs it does not take raise (check_strain_apply10_inputs). lam and mu
+    are Python floats. Calls on one device share its ticket counters, so they
+    must not run on two streams at once."""
     if not u2.is_cuda:
         return strain_apply10_plain(res, geo, u2, free2, lam, mu)
     check_strain_apply10_inputs(res, geo, u2, free2)
     g, vol = geo
     _, B, NI2, NK2, NJ2 = u2.shape
+    plan = l_plan(res, u2.element_size())
+    tiles = B * plan.tiles_i * plan.tiles_j
     y = torch.empty_like(u2)
+    partial = torch.empty(tiles * plan.rim * 3 * NK2, dtype=u2.dtype, device=u2.device)
+    ticket = _l_tickets(u2.device, tiles)
     lib = load_kernels()
-    fn = lib.tpufem_strain_apply10_f64 if u2.dtype == torch.float64 else lib.tpufem_strain_apply10_f32
+    fn = (lib.tpufem_strain_apply10_tiled_f64 if u2.dtype == torch.float64
+          else lib.tpufem_strain_apply10_tiled_f32)
     status = fn(g.data_ptr(), vol.data_ptr(), u2.data_ptr(), free2.data_ptr(), y.data_ptr(),
-                B, NI2, NK2, NJ2, int(res.te_floor_frac == 0.0), float(lam), float(mu),
+                partial.data_ptr(), ticket.data_ptr(), B, NI2, NK2, NJ2,
+                int(res.te_floor_frac == 0.0), plan.TI, plan.TJ, float(lam), float(mu),
                 torch.cuda.current_stream(u2.device).cuda_stream)
     check(status, "strain_apply10")
     strain_apply10.launches += 1
@@ -398,13 +454,50 @@ def prolong_p(res: WingMeshResolution, x4, dup2, free2):
 prolong_p.launches = 0
 
 
+@dataclass(frozen=True)
+class MPlan:
+    """restrict_p's launch: tiles of TIr x TJr tet4 node rows and columns at
+    full thickness, tiles_i x tiles_j of them per lane and component, `smem`
+    bytes each."""
+
+    TIr: int
+    TJr: int
+    tiles_i: int
+    tiles_j: int
+    smem: int
+
+
+M_NODE_COLS = 16  # restrict_p's most node columns a tile (a thread each)
+M_MAX_ROWS = 1024  # restrict_p's most staged doubled rows (its static row table)
+
+
+def m_plan(res: WingMeshResolution, itemsize: int) -> MPlan:
+    """restrict_p's tile at res's grid: M_NODE_COLS node columns (a staged
+    doubled row of 33 values) and the most of 4, 3, 2, 1 node rows whose
+    staged rows (2 TIr + 1 doubled rows at every k2, each padded to whole
+    16-byte chunks, at most M_MAX_ROWS) and weld shares fit in shared memory
+    beside the static row table; clipped to the grid. Raises where one row
+    does not fit."""
+    NI, NK, NJ = res.n_chord + 1, res.n_thick + 1, res.n_span + 1
+    v = 16 // itemsize
+    TJr = min(M_NODE_COLS, NJ)
+    rs = (2 * TJr + 1 + 2 * (v - 1)) // v * v
+    for TIr in (4, 3, 2, 1):
+        TIr = min(TIr, NI)
+        smem = ((2 * TIr + 1) * (2 * NK - 1) * rs + TIr * NK * TJr) * itemsize
+        if (2 * TIr + 1) * (2 * NK - 1) <= M_MAX_ROWS and smem <= MAX_DYNAMIC_SMEM - 4 * M_MAX_ROWS:
+            return MPlan(TIr, TJr, -(-NI // TIr), -(-NJ // TJr), smem)
+    raise ValueError(f"kernel M (restrict_p) takes at most {(M_MAX_ROWS // 3 + 1) // 2} node "
+                     f"layers, not {NK}")
+
+
 def restrict_p(res: WingMeshResolution, r2, free4):
     """Exact transpose of prolong_p: (3,B,NI2,NK2,NJ2) active -> tet4 grid
     (3,B,NI,NK,NJ), then the tet4 weld reduce and free4 (1,1,1,1,NJ).
 
     A CPU tensor takes restrict_p_plain; a CUDA tensor launches kernel M's
-    restriction (one launch, a gather per tet4 node, no atomics), or raises
-    on inputs it does not take."""
+    restriction (one launch on the tiles of m_plan, a gather per tet4 node
+    from shared memory, no atomics), or raises on inputs it does not take."""
     if not r2.is_cuda:
         return restrict_p_plain(res, r2, free4)
     NJ = res.n_span + 1
@@ -413,10 +506,13 @@ def restrict_p(res: WingMeshResolution, r2, free4):
     B = r2.shape[1]
     NI, NK = res.n_chord + 1, res.n_thick + 1
     y4 = torch.empty((3, B, NI, NK, NJ), dtype=r2.dtype, device=r2.device)
+    plan = m_plan(res, r2.element_size())
     lib = load_kernels()
-    fn = lib.tpufem_restrict_p_f64 if r2.dtype == torch.float64 else lib.tpufem_restrict_p_f32
+    fn = (lib.tpufem_restrict_p_tiled_f64 if r2.dtype == torch.float64
+          else lib.tpufem_restrict_p_tiled_f32)
     status = fn(r2.data_ptr(), free4.data_ptr(), y4.data_ptr(), B, NI, NK, NJ,
-                int(res.te_floor_frac == 0.0), torch.cuda.current_stream(r2.device).cuda_stream)
+                int(res.te_floor_frac == 0.0), plan.TIr, plan.TJr,
+                torch.cuda.current_stream(r2.device).cuda_stream)
     check(status, "restrict_p")
     restrict_p.launches += 1
     return y4

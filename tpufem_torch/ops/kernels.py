@@ -79,15 +79,17 @@ _SIGNATURES = {
     "tpufem_stvk_energy_f64": [_P] * 7 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2 + [_P],
     # (g, vol, u, w, free, gbar, volbar, B, NI, NK, NJ, weld_te, lam, mu, stream)
     "tpufem_strain_geo_vjp_f64": [_P] * 7 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2 + [_P],
-    # (g, vol, u2, free2, y, B, NI2, NK2, NJ2, weld_te, lam, mu, stream)
-    "tpufem_strain_apply10_f32": [_P] * 5 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2 + [_P],
-    "tpufem_strain_apply10_f64": [_P] * 5 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2 + [_P],
+    # (g, vol, u2, free2, y, partial, ticket, B, NI2, NK2, NJ2, weld_te, TI, TJ, lam, mu, stream)
+    "tpufem_strain_apply10_tiled_f32": [_P] * 7 + [ctypes.c_int] * 7 + [ctypes.c_double] * 2
+    + [_P],
+    "tpufem_strain_apply10_tiled_f64": [_P] * 7 + [ctypes.c_int] * 7 + [ctypes.c_double] * 2
+    + [_P],
     # (x4, dup2, free2, y2, B, NI, NK, NJ, weld_te, stream)
     "tpufem_prolong_p_f32": [_P] * 4 + [ctypes.c_int] * 5 + [_P],
     "tpufem_prolong_p_f64": [_P] * 4 + [ctypes.c_int] * 5 + [_P],
-    # (r2, free4, y4, B, NI, NK, NJ, weld_te, stream)
-    "tpufem_restrict_p_f32": [_P] * 3 + [ctypes.c_int] * 5 + [_P],
-    "tpufem_restrict_p_f64": [_P] * 3 + [ctypes.c_int] * 5 + [_P],
+    # (r2, free4, y4, B, NI, NK, NJ, weld_te, TIr, TJr, stream)
+    "tpufem_restrict_p_tiled_f32": [_P] * 3 + [ctypes.c_int] * 7 + [_P],
+    "tpufem_restrict_p_tiled_f64": [_P] * 3 + [ctypes.c_int] * 7 + [_P],
     # (vals, order, starts, out, N, C, stream)
     "tpufem_csr_segment_sum_f32": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
     "tpufem_csr_segment_sum_f64": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
@@ -169,6 +171,18 @@ def load_kernels() -> ctypes.CDLL:
     return build_library(CSRC)
 
 
+def parse_compare_specs(specs) -> list:
+    """[(label, Path)] of the profilers' --compare LABEL=DIR arguments; raises
+    ValueError on a malformed one (no label, no '=' or no directory)."""
+    parsed = []
+    for spec in specs:
+        label, sep, path = spec.partition("=")
+        if not sep or not label or not path:
+            raise ValueError(f"--compare takes LABEL=DIR, not {spec!r}")
+        parsed.append((label, Path(path)))
+    return parsed
+
+
 def compare_libraries(specs) -> dict:
     """{label: library} for the profilers' --compare LABEL=DIR arguments:
     each DIR a csrc/ of another commit (e.g. unpacked with `git archive <rev>
@@ -176,12 +190,7 @@ def compare_libraries(specs) -> dict:
     build_library, all libraries at once. Each library's build report is its
     `build_info` attribute. Measuring aids only: no entry point of the port
     loads them."""
-    parsed = []
-    for spec in specs:
-        label, sep, path = spec.partition("=")
-        if not sep or not label or not path:
-            raise ValueError(f"--compare takes LABEL=DIR, not {spec!r}")
-        parsed.append((label, Path(path), {}))
+    parsed = [(label, path, {}) for label, path in parse_compare_specs(specs)]
     with ThreadPoolExecutor(max_workers=max(len(parsed), 1)) as pool:
         libs = list(pool.map(lambda a: build_library(a[1], a[2]), parsed))
     out = {}

@@ -19,7 +19,8 @@ measure_M(): kernel M's two entries on the same shapes, against their plain
 versions (bars 1e-14 in f64, 1e-6 in f32 of the largest entry: the weld
 rows' column sums run in another order), with the same times and a byte
 bound; the library time is one torch.sparse.mm of the transfer's CSR matrix
-(transfer_matrices) on the same field laid out as (nodes, 3 B).
+(transfer_matrices) on the same field laid out as (nodes, 3 B), by event
+time and by device time (every device activity of the call, repeated).
 
 iteration_profile(): the flagship CLI's f32 CG (Tet10StencilT at
 DOF1M_TET10, one wing), `iters` iterations after a warm-up: ms per
@@ -29,12 +30,27 @@ line_apply10 and the tet4 V-cycle's line solves, whose GEMMs have no name of
 their own, by their per-call device time (measured alone) times their
 calls per iteration.
 
-Usage: python -m tpufem_torch.profile_tet10 [--out PATH] [--iters N]
+--compare LABEL=DIR ...: kernels L and M as built from another csrc/ (the
+parent commit's, unpacked with `git archive <rev> tpufem_torch/csrc | tar -x
+-C build/parent`, or an edited copy of the port's) are timed the same way at
+every SHAPES entry, in turns: the compared builds, the port's own, the
+compared builds again, each build a library of its own
+(ops/kernels.py::compare_libraries). Each is held to the plain version (a
+measuring variant that drops work is timed all the same, its line marked
+OUTSIDE the tolerance) and to its own bits on repeat, and its output is
+compared with the port's bit for bit (its largest difference from the
+port's printed, and from the first compared build's). A build whose sources
+predate the tiled entry points (tpufem_strain_apply10_tiled_*,
+tpufem_restrict_p_tiled_*) is called through its own. Each library's ptxas
+registers and spills for L and M are printed.
+
+Usage: python -m tpufem_torch.profile_tet10 [--out PATH] [--iters N] [--compare LABEL=DIR ...]
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import sys
 import time
@@ -49,6 +65,14 @@ from tpufem_torch.fem import tet10_stencil as ts
 from tpufem_torch.fem.material import Material, lame_params
 from tpufem_torch.fem.tet10 import DNDXI
 from tpufem_torch.mesher import DOF1M_TET10, WingMeshResolution, structured_wing_mesh
+from tpufem_torch.ops.kernels import (
+    build_info,
+    check,
+    compare_libraries,
+    load_kernels,
+    parse_compare_specs,
+    ptxas_report,
+)
 from tpufem_torch.utils.profiling import device_time, median_event_ms
 
 LAM, MU = lame_params(Material())
@@ -76,14 +100,17 @@ KERNEL_NAMES = {"strain_apply10": "strain_apply10_kernel", "prolong_p": "prolong
                 "restrict_p": "restrict_p_kernel"}
 LETTERS = {"strain_apply10": "L", "prolong_p": "M", "restrict_p": "M"}
 DESIGNS = {
-    "strain_apply10": "a block per tile of own_j x own_i tet4 node columns at full thickness "
-                      "(halo cells recomputed), a thread per cell walking its 6 tets with the "
-                      "10 node forces in registers, shares in shared memory, a fixed-order "
-                      "per-position sum with the welds: no atomics",
+    "strain_apply10": "cell-owning tiles of TI x TJ cells at full thickness (l_plan), two "
+                      "threads per cell (tets 0-2, 3-5) with DNDXI folded at compile time, "
+                      "node forces into per-thread shared slots, a fixed-order per-position "
+                      "sum; the faces shared between tiles summed from per-tile partials by the "
+                      "block that takes a tile's last ticket: no atomics on values",
     "prolong_p": "a thread per doubled position: copy or edge mean of the weld-spread tet4 "
                  "field, times dup2 and free2",
-    "restrict_p": "a thread per tet4 node gathering its position and the 14 incident edge "
-                  "midpoints, then the weld reduce and free4: no atomics",
+    "restrict_p": "a block per tile of node rows x 16 node columns at full thickness and one "
+                  "component (m_plan): the doubled rows staged in shared memory with 16-byte "
+                  "loads, a thread per node, weld columns summed in k order after a barrier: "
+                  "no atomics",
 }
 
 
@@ -146,7 +173,9 @@ def check_and_time(name, label, fn, plain, tol, nbytes_, flops, dtype, timed=Tru
                    device_us=r["device_us"], device_us_cold=r["device_us_cold"],
                    activities=r["activities"], share=bound_us / r["device_us_cold"],
                    share_repeated=bound_us / r["device_us"],
-                   library_ms=median_event_ms(library, 7) if library else None)
+                   library_ms=median_event_ms(library, 7) if library else None,
+                   library_device_us=(device_time(library, "")["all_device_us"] if library
+                                      else None))
     return rec
 
 
@@ -240,7 +269,8 @@ def line(rec) -> str:
          f"B={rec['B']} {rec['dtype']}: max|err| {rec['max_abs_err']:.3e} (rel "
          f"{rec['rel_err']:.2e}), bitwise repeatable")
     if "ms" in rec:
-        lib = (f"; library (torch.sparse.mm) {rec['library_ms']:.4f} ms"
+        lib = (f"; library (torch.sparse.mm) {rec['library_ms']:.4f} ms, device "
+               f"{rec['library_device_us']:.2f} us (every activity, repeated)"
                if rec["library_ms"] is not None else "; no one-call PyTorch equivalent")
         s += (f"; {rec['activities']:.0f} device activity per call; event {rec['ms']:.4f} ms vs "
               f"plain {rec['plain_ms']:.4f} ms (median of 7); device {rec['device_us']:.2f} us "
@@ -248,6 +278,162 @@ def line(rec) -> str:
               f"{rec['bound_us']:.2f} us ({rec['bound_by']}, {rec['bytes'] / 1e6:.1f} MB, "
               f"{rec['flops'] / 1e9:.3f} GFLOP): {rec['share']:.1%} flushed{lib}")
     return s
+
+
+def library_call(lib, name, res, ins):
+    """Kernel L or one of M's entries through another build of the kernels
+    (--compare): the wrapper's launch without its checks and launch counter,
+    through the tiled entry points where the build has them (the tile from
+    l_plan / m_plan, L's partials and tickets of its own), else through the
+    entry points they replaced. Returns the call; each call overwrites its
+    output."""
+    weld_te = int(res.te_floor_frac == 0.0)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    d = "f64" if ins[-1].dtype == torch.float64 else "f32"
+    P = ctypes.c_void_p
+    if name == "strain_apply10":
+        (g, vol), u, free2 = ins
+        out = torch.empty_like(u)
+        _, B, NI2, NK2, NJ2 = u.shape
+        fn = getattr(lib, f"tpufem_strain_apply10_tiled_{d}", None)
+        if fn is not None:
+            plan = ts.l_plan(res, u.element_size())
+            tiles = B * plan.tiles_i * plan.tiles_j
+            partial = torch.empty(tiles * plan.rim * 3 * NK2, dtype=u.dtype, device=u.device)
+            ticket = torch.zeros(tiles, dtype=torch.int32, device=u.device)
+            ptrs = (g, vol, u, free2, out, partial, ticket)
+            args = (B, NI2, NK2, NJ2, weld_te, plan.TI, plan.TJ, float(LAM), float(MU))
+        else:
+            fn = getattr(lib, f"tpufem_strain_apply10_{d}")
+            fn.argtypes = [P] * 5 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2 + [P]
+            fn.restype = ctypes.c_int
+            ptrs = (g, vol, u, free2, out)
+            args = (B, NI2, NK2, NJ2, weld_te, float(LAM), float(MU))
+    elif name == "restrict_p":
+        r2, free4, x4 = ins
+        out = torch.empty_like(x4)
+        _, B, NI, NK, NJ = x4.shape
+        fn = getattr(lib, f"tpufem_restrict_p_tiled_{d}", None)
+        if fn is not None:
+            plan = ts.m_plan(res, r2.element_size())
+            args = (B, NI, NK, NJ, weld_te, plan.TIr, plan.TJr)
+        else:
+            fn = getattr(lib, f"tpufem_restrict_p_{d}")
+            fn.argtypes = [P] * 3 + [ctypes.c_int] * 5 + [P]
+            fn.restype = ctypes.c_int
+            args = (B, NI, NK, NJ, weld_te)
+        ptrs = (r2, free4, out)
+    else:
+        x4, dup2, free2, r2 = ins
+        out = torch.empty_like(r2)
+        fn = getattr(lib, f"tpufem_prolong_p_{d}")
+        ptrs = (x4, dup2, free2, out)
+        args = (*x4.shape[1:], weld_te)
+
+    def call():  # reads ptrs, which keeps L's partials and tickets alive with the call
+        check(fn(*(t.data_ptr() for t in ptrs), *args, stream()), name)
+        return out
+
+    return call
+
+
+def compare_inputs(label, res, p4s, device) -> dict:
+    """{(kernel, dtype name): (inputs, port's call, plain call, tol, bytes, flops)}
+    at one SHAPES entry: measure_L's and measure_M's inputs."""
+    out = {}
+    B = len(p4s)
+    NI, NK, NJ = res.n_chord + 1, res.n_thick + 1, res.n_span + 1
+    n_tets = 6 * res.n_chord * res.n_thick * res.n_span * B
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        d = DTYPE_NAMES[dtype]
+        geo, u, free2 = l_inputs(res, p4s, dtype, device)
+        out["strain_apply10", d] = (
+            (geo, u, free2), lambda geo=geo, u=u, free2=free2: ts.strain_apply10(
+                res, geo, u, free2, LAM, MU),
+            lambda geo=geo, u=u, free2=free2: ts.strain_apply10_plain(res, geo, u, free2, LAM, MU),
+            tol, nbytes(u, geo[0][:, 1:], geo[1], free2) + nbytes(u), l_flops_per_tet() * n_tets)
+        gen = torch.Generator(device=device).manual_seed(1)
+        x4 = torch.randn((3, B, NI, NK, NJ), generator=gen, device=device, dtype=dtype)
+        r2 = torch.randn((3, B, *ts._doubled(res)), generator=gen, device=device, dtype=dtype)
+        dup2, free2 = ts.dup_mask2(res, dtype, device), ts.free_mask2(res, dtype, device)
+        free4 = torch.ones((1, 1, 1, 1, NJ), dtype=dtype, device=device)
+        free4[..., 0] = 0.0
+        out["prolong_p", d] = (
+            (x4, dup2, free2, r2), lambda x4=x4, dup2=dup2, free2=free2: ts.prolong_p(
+                res, x4, dup2, free2),
+            lambda x4=x4, dup2=dup2, free2=free2: ts.prolong_p_plain(res, x4, dup2, free2),
+            M_TOL[dtype], nbytes(x4, dup2, free2) + nbytes(r2), 0)
+        out["restrict_p", d] = (
+            (r2, free4, x4), lambda r2=r2, free4=free4: ts.restrict_p(res, r2, free4),
+            lambda r2=r2, free4=free4: ts.restrict_p_plain(res, r2, free4),
+            M_TOL[dtype], nbytes(r2, free4) + nbytes(x4), 0)
+    return out
+
+
+def library_record(name, label, lib_label, fn, port, plain, tol, nbytes_, flops, dtype,
+                   first=None) -> dict:
+    """One kernel entry of another build on one shape: its error against the
+    plain version (`within_tol`: a measuring variant may drop work), the same
+    bits twice, whether it gives
+    the port's bits (and its largest difference from them; with `first`,
+    the first compared build's output, from that too), device time repeated
+    and with the L2 flushed, launches and activities per call, and the share
+    of the same bound."""
+    y = fn().clone()
+    again = fn()
+    ref, mine = plain(), port()
+    vs_first = {} if first is None else {"max_diff_first": (y - first).abs().max().item()}
+    scale = ref.abs().max().item()
+    err = (y - ref).abs().max().item()
+    r = device_time(fn, KERNEL_NAMES[name], cold=True)
+    bound_us, bound_by = bound(nbytes_, flops, dtype)
+    return {"kernel": name, "library": lib_label, "case": label, "dtype": DTYPE_NAMES[dtype],
+            "max_abs_err": err, "rel_err": err / scale, "within_tol": err <= tol * scale,
+            "bitwise_repeat": torch.equal(y, again),
+            "equals_port": torch.equal(y, mine), "max_diff_port": (y - mine).abs().max().item(),
+            "rel_diff_port": (y - mine).abs().max().item() / scale, **vs_first,
+            "device_us": r["device_us"], "device_us_cold": r["device_us_cold"],
+            "launches": r["launches"], "activities": r["activities"], "bound_us": bound_us,
+            "bound_by": bound_by, "share": bound_us / r["device_us_cold"],
+            "share_repeated": bound_us / r["device_us"]}
+
+
+def measure_library(label, lib_label, lib, res, p4s, device, firsts: dict) -> list:
+    """Kernels L and M of library `lib` at one SHAPES entry (library_record);
+    `firsts` keeps the first compared build's outputs, by kernel and dtype,
+    and each later build is held to them too."""
+    recs = []
+    for (name, d), (ins, port, plain, tol, nb, fl) in compare_inputs(label, res, p4s,
+                                                                      device).items():
+        call = library_call(lib, name, res, ins)
+        first = firsts.get((name, d))
+        if first is None:
+            firsts[(name, d)] = call().clone()
+        rec = library_record(name, label, lib_label, call, port, plain, tol, nb, fl,
+                             ins[-1].dtype, first)
+        recs.append({**rec, "grid": list(res.key), "B": len(p4s)})
+    return recs
+
+
+def library_line(rec) -> str:
+    first = (f", from the first compared build's {rec['max_diff_first']:.3e}"
+             if "max_diff_first" in rec else "")
+    held = "" if rec["within_tol"] else " OUTSIDE the tolerance"
+    return (f"[compare {rec['library']}] {rec['kernel']} {rec['case']} {rec['dtype']}: rel err "
+            f"{rec['rel_err']:.2e}{held}, bitwise repeat {rec['bitwise_repeat']}, the port's bits "
+            f"{rec['equals_port']} (largest difference {rec['max_diff_port']:.3e}, rel "
+            f"{rec['rel_diff_port']:.2e}{first}); device {rec['device_us']:.2f} us repeated, "
+            f"{rec['device_us_cold']:.2f} us L2 flushed, {rec['launches']:.0f} launch and "
+            f"{rec['activities']:.0f} activity per call; bound {rec['bound_us']:.2f} us: "
+            f"{rec['share']:.1%} flushed")
+
+
+def ptxas_line(label, log) -> str:
+    """The registers and spills ptxas reported for kernels L and M of one build."""
+    rep = {k: v for k, v in ptxas_report(log).items()
+           if any(n in k for n in KERNEL_NAMES.values())}
+    return (f"[ptxas {label}] " + "; ".join(f"{k}: {r} registers, {ss} / {sl} B spilled"
+                                            for k, (r, ss, sl) in sorted(rep.items())))
 
 
 def flagship_solver(device):
@@ -329,17 +515,35 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="file for the results as JSON lines")
     ap.add_argument("--iters", type=int, default=40, help="CG iterations profiled")
+    ap.add_argument("--compare", nargs="*", default=[], metavar="LABEL=DIR",
+                    help="also time kernels L and M as built from each csrc/ DIR (another "
+                         "commit's, or an edited copy), before and after the port's own, at "
+                         "every shape")
     args = ap.parse_args(argv)
+    parse_compare_specs(args.compare)  # a malformed spec raises before anything is built
     if not torch.cuda.is_available():
         print("profile_tet10: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    load_kernels()
+    libs = compare_libraries(args.compare)
+    print(ptxas_line("port", build_info.get("log", "")), flush=True)
+    for lab, lib in libs.items():
+        print(ptxas_line(lab, lib.build_info.get("log", "")), flush=True)
     rows = []
     for label, (res, p4s) in SHAPES.items():
-        for rec in (*measure_L(label, res, p4s, dev).values(),
-                    *measure_M(label, res, len(p4s), dev).values()):
-            print(line(rec), flush=True)
-            rows.append(rec)
+        firsts = {}
+        # in turns: the compared builds, the port's kernels, the compared builds again
+        for turn, order in ((0, list(libs.items())), (1, list(reversed(libs.items())))):
+            if turn:
+                for rec in (*measure_L(label, res, p4s, dev).values(),
+                            *measure_M(label, res, len(p4s), dev).values()):
+                    print(line(rec), flush=True)
+                    rows.append(rec)
+            for lab, lib in order:
+                for rec in measure_library(label, lab, lib, res, p4s, dev, firsts):
+                    print(library_line(rec), flush=True)
+                    rows.append({**rec, "turn": turn})
     r = iteration_profile(dev, args.iters)
     print(iteration_line(r), flush=True)
     rows.append(r)
