@@ -43,9 +43,14 @@ trained checkpoint exists). Along the way:
      seeded permutation (a stand-in for a user mesh), bitwise repeatable,
      exactly 1 launch and 1 device activity per apply, with its event times,
      device time (repeated and with the L2 flushed) and bound; kernel E
-     (csr_segment_sum) against its plain version, f32 and f64, with both
-     times and the library's on equal work (zeros, then index_add_, every
-     device activity; beside it the adds into a filled buffer, "no fill");
+     (csr_segment_sum) at every plan and width it runs at on the gather path
+     (DOF100K wing 0: the incidence at C = 3, 6, 1, the loads, the line
+     blocks' blk_plan, the RBM group_plan at C = 4 and 6 and the RBM
+     pair_plans[0] at C = 36) and in the stencil engine (phase 3's batch:
+     upper_plan at C = 3B, tet_plan at C = 6B and B): bit for bit the CPU
+     plain version's output in f64 and f32, with event, plain and library
+     times (zeros, then index_add_) and device times per launch (repeated
+     and flushed; the library's by every activity) against the byte bound;
      (b) phase 3's batch solved again, on a fresh WingStencilT (its
      setup built anew: kernel E's fixed summation order) and on phase 3's
      solver (a hit of its setup cache, setup 0 s): the same iterations and
@@ -119,9 +124,10 @@ trained checkpoint exists). Along the way:
      its defaults (32x40x4): converged, first mode spanwise bending,
      frequencies beside phase 7's tet4 ones; (e) WingModal10 at 8x10x2 equal
      to scipy shift-invert of assemble_K10 with lumped_mass10 to 1e-7;
-     (f) kernel E against its plain version on the flagship solver's own
-     plans and operands: the T6 midside loads (C = 3) and the nodal stress
-     numerator (C = 6) and denominator (C = 1), with phase 6's bars;
+     (f) kernel E on the flagship solver's own plans and operands, with
+     phase 6's checks (the CPU plain version's bits, f64 and f32): the T6
+     midside loads (C = 3) and the connectivity's nodal stress numerator
+     (C = 6) and denominator (C = 1);
  10. prints the wall time of every phase, the peak device memory of the
      phase-3 solve, the training phase, the gather solve, the dynamics, the
      design and the tet10 phase, the kernels' JSON line, then {"ok": true,
@@ -130,8 +136,9 @@ trained checkpoint exists). Along the way:
 Every phase raises on failure; the script then exits nonzero and prints no
 result. Usage: python3 chip_smoke.py   (one card, no arguments)
 
-Its phases took 218-252 s (phase 7: 31-38 s, phase 8: 69-87 s, phase 9:
-39-45 s) on an NVIDIA H100 80GB HBM3 at 700 W.
+Its phases took 218-263 s (phase 6: 31-37 s with kernel E at every plan,
+phase 7: 31-42 s, phase 8: 69-87 s, phase 9: 39-46 s) on an NVIDIA H100
+80GB HBM3 at 700 W.
 """
 
 from __future__ import annotations
@@ -857,64 +864,54 @@ def check_stiffness_apply(dev, mesh, root_nodes, lam, mu):
 
 
 def check_csr_sum(label, vals64, plan):
-    """Kernel E against csr_segment_sum_plain on one plan, f64 and f32."""
+    """Kernel E at one plan and width: the card's output equal bit for bit to
+    csr_segment_sum_plain on CPU copies, f64 and f32, and the same bits on a
+    second call; event times of kernel, plain version and the library on
+    equal work (torch.zeros, then index_add_), device times per launch
+    (repeated and with the L2 flushed; the library's by every activity), the
+    byte bound, each in f64 and f32."""
     from tpufem_torch.ops import csr_segment_sum as cs
     from tpufem_torch.utils.profiling import device_time
 
-    out = cs.csr_segment_sum(vals64, plan)
-    ref = cs.csr_segment_sum_plain(vals64, plan)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    require(err <= 1e-12 * scale, f"kernel E {label} f64: {err:.3e} vs scale {scale:.3e}")
-    require(torch.equal(out, cs.csr_segment_sum(vals64, plan)), f"kernel E {label} f64 not "
-            "deterministic")
-    v32 = vals64.float()
-    o32 = cs.csr_segment_sum(v32, plan)
-    require(torch.equal(o32, cs.csr_segment_sum(v32, plan)),
-            f"kernel E {label} f32 not deterministic")
-    e_k = (o32.double() - ref).abs().max().item()
-    e_p = (cs.csr_segment_sum_plain(v32, plan).double() - ref).abs().max().item()
-    require(e_k <= 2.0 * e_p, f"kernel E {label} f32 error {e_k:.3e} > 2x plain {e_p:.3e}")
-    ms, plain_ms = timed_pair(lambda: cs.csr_segment_sum(vals64, plan),
-                              lambda: cs.csr_segment_sum_plain(vals64, plan))
-    ms32, plain32 = timed_pair(lambda: cs.csr_segment_sum(v32, plan),
-                               lambda: cs.csr_segment_sum_plain(v32, plan))
-    R, C = vals64.shape
+    plan_cpu = cs.plan_on(plan, "cpu")
     ids = torch.empty_like(plan.seg)  # each row's segment id, in row order
     ids[plan.order.long()] = plan.seg
-    acc = torch.zeros_like(out)
-    # the library on equal work: a zero-filled (N, C) output, then the adds
-    filled = lambda: torch.zeros_like(out).index_add_(0, ids, vals64)  # noqa: E731
-    require(torch.allclose(filled(), ref, rtol=1e-12, atol=1e-12 * scale),
-            f"index_add_ {label} does not compute kernel E's sum")
-    library_ms = median_ms(filled)
-    nofill_ms = median_ms(lambda: acc.index_add_(0, ids, vals64))
-    bd = bound(nbytes(vals64, plan.order, plan.starts, out), vals64.numel(), torch.float64)
-    bd32 = bound(nbytes(v32, plan.order, plan.starts, o32), v32.numel(), torch.float32)
-    dev_us = device_time(lambda: cs.csr_segment_sum(vals64, plan),
-                         "csr_segment_sum_kernel")["device_us"]
-    dev_us32 = device_time(lambda: cs.csr_segment_sum(v32, plan),
-                           "csr_segment_sum_kernel")["device_us"]
-    # every device activity of the library call: the fill and the adds; and,
-    # as before, the adds into a filled buffer alone ("no fill")
-    library_us = device_time(filled, "")["all_device_us"]
-    nofill_us = device_time(lambda: acc.index_add_(0, ids, vals64), "")["all_device_us"]
-    share, share32 = bd["bound_ms"] * 1e3 / dev_us, bd32["bound_ms"] * 1e3 / dev_us32
-    print(f"[kernel E] csr_segment_sum {label}: R={R} C={C} N={plan.num_segments}: f64 max|err| "
-          f"{err:.3e} (scale {scale:.3e}, bar 1e-12 rel), bitwise deterministic; f32 err vs f64 "
-          f"{e_k:.3e} (plain f32 {e_p:.3e}, bar 2x); f64 {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
-          f"zeros + index_add_ {library_ms:.4f} ms (no fill {nofill_ms:.4f}), f32 {ms32:.4f} ms "
-          f"vs plain {plain32:.4f} ms (median of 7); device time per launch (torch.profiler) f64 "
-          f"{dev_us:.2f} us (zeros + index_add_ {library_us:.2f} us, every activity; no fill "
-          f"{nofill_us:.2f} us), bound "
-          f"{bd['bound_ms'] * 1e3:.2f} us ({bd['bound_by']}): {share:.1%}; f32 {dev_us32:.2f} us, "
-          f"bound {bd32['bound_ms'] * 1e3:.2f} us: {share32:.1%}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bd,
-            "device_us": dev_us, "library_device_us": library_us, "library_ms_no_fill": nofill_ms,
-            "library_device_us_no_fill": nofill_us, "share": share, "R": R, "C": C,
-            "f32": {"max_abs_err": e_k, "plain_max_abs_err": e_p, "ms": ms32, "plain_ms": plain32,
-                    "device_us": dev_us32, "bound_ms": bd32["bound_ms"], "share": share32}}
+    R, C = vals64.shape
+    rec = {"R": R, "C": C, "N": plan.num_segments}
+    for d, vals in (("f64", vals64), ("f32", vals64.float())):
+        out = cs.csr_segment_sum(vals, plan)
+        ref = cs.csr_segment_sum_plain(vals.cpu(), plan_cpu)
+        require(torch.equal(out.cpu(), ref), f"kernel E {label} {d}: not the CPU plain version's "
+                f"bits (largest difference {(out.cpu() - ref).abs().max().item():.3e})")
+        require(torch.equal(out, cs.csr_segment_sum(vals, plan)),
+                f"kernel E {label} {d}: two calls differ")
+        filled = lambda v=vals, o=out: torch.zeros_like(o).index_add_(0, ids, v)  # noqa: E731
+        tol = (1e-4 if d == "f32" else 1e-12) * max(out.abs().max().item(), 1e-300)
+        require((filled() - out).abs().max().item() <= tol,
+                f"index_add_ {label} {d} does not compute kernel E's sum")
+        ms, plain_ms = timed_pair(lambda v=vals: cs.csr_segment_sum(v, plan),
+                                  lambda v=vals: cs.csr_segment_sum_plain(v, plan))
+        r = device_time(lambda v=vals: cs.csr_segment_sum(v, plan), "csr_segment_sum_kernel",
+                        cold=True)
+        lib = device_time(filled, "index", cold=True)  # counted by the adds' kernel
+        bd = bound(nbytes(vals, plan.order, plan.starts, out), vals.numel(), vals.dtype)
+        rec[d] = {"max_abs_err": (out.cpu() - ref).abs().max().item(), "equals_cpu_plain": True,
+                  "ms": ms, "plain_ms": plain_ms, "library_ms": median_ms(filled), **bd,
+                  "device_us": r["device_us"], "device_us_cold": r["device_us_cold"],
+                  "library_device_us": lib["all_device_us"],
+                  "library_device_us_cold": lib["all_device_us_cold"],
+                  "share": bd["bound_ms"] * 1e3 / r["device_us_cold"]}
+    a, b = rec["f64"], rec["f32"]
+    print(f"[kernel E] csr_segment_sum {label}: R={R} C={C} N={plan.num_segments}: the CPU plain "
+          f"version's bits in f64 and f32, bitwise repeatable; f64 {a['ms']:.4f} ms vs plain "
+          f"{a['plain_ms']:.4f} ms, zeros + index_add_ {a['library_ms']:.4f} ms; device per launch "
+          f"f64 {a['device_us']:.2f} us repeated, {a['device_us_cold']:.2f} us L2 flushed (zeros + "
+          f"index_add_, every activity: {a['library_device_us']:.2f} / "
+          f"{a['library_device_us_cold']:.2f} us), bound {a['bound_ms'] * 1e3:.2f} us: "
+          f"{a['share']:.1%} flushed; f32 {b['device_us']:.2f} / {b['device_us_cold']:.2f} us "
+          f"(library {b['library_device_us']:.2f} / {b['library_device_us_cold']:.2f} us), bound "
+          f"{b['bound_ms'] * 1e3:.2f} us: {b['share']:.1%}", flush=True)
+    return rec
 
 
 def gather_true_residual_cpu(mesh, bs, u, lam, mu):
@@ -968,7 +965,7 @@ def run_gather_path(dev, res, state):
     the DOF100K gather solve (twice) and FEM stage, and the MEDIUM entry
     points. Returns kernels D's and E's report entries."""
     from tpufem_torch.fem import assembly as asm
-    from tpufem_torch.fem.driver import WingSolveConfig, solve_wing_case
+    from tpufem_torch.fem.driver import WingSolveConfig, mesh_plans, solve_wing_case
     from tpufem_torch.fem.elements import tet4_setup
     from tpufem_torch.fem.material import Material, lame_params
     from tpufem_torch.fem.stencil_mg import WingStencilT
@@ -994,17 +991,27 @@ def run_gather_path(dev, res, state):
     gen = torch.Generator(device=dev).manual_seed(4)
     u = torch.randn((mesh.num_nodes, 3), generator=gen, dtype=torch.float64, device=dev)
     kd = check_stiffness_apply(dev, mesh, bs.nroot_nodes, lam, mu)
+    # kernel E at every plan and width the port launches it at here: the
+    # gather path's (the element forces on the incidence; seeded values
+    # elsewhere) and the stencil engine's at phase 3's batch
     fe = asm.tet4_element_force_plain(grads, vols, tets, u, lam, mu)
-    upper = mesh.surf_faces[bs.surf_upper_faces]
-    inc = cs.csr_plan(mesh.tets, mesh.num_nodes, dev)
-    ke = {"incidence C=3": check_csr_sum("element forces (incidence) C=3", fe, inc),
-          "incidence C=6": check_csr_sum(
-              "incidence C=6",
-              torch.randn((fe.shape[0], 6), generator=gen, dtype=torch.float64, device=dev), inc),
-          "loads C=3": check_csr_sum(
-              "loads (upper faces x 3 corners) C=3",
-              torch.randn((upper.size, 3), generator=gen, dtype=torch.float64, device=dev),
-              cs.csr_plan(upper, mesh.num_nodes, dev))}
+    plans = mesh_plans(mesh, bs, dev, two_level=True)
+    bt, nb = solver.bt, p4.shape[0]
+    ke = {}
+    for label, plan, widths in (
+            ("gather incidence", plans["incidence"], (3, 6, 1)),
+            ("gather loads", plans["loads"], (3,)),
+            ("gather line blk_plan", plans["line"]["blk_plan"], (9,)),
+            ("gather RBM group_plan", plans["rbm"].group_plan, (4, 6)),
+            ("gather RBM pair_plans[0]", plans["rbm"].pair_plans[0], (36,)),
+            ("stencil upper_plan", bt.upper_plan, (3 * nb,)),
+            ("stencil tet_plan", bt.tet_plan, (6 * nb, nb))):
+        for C in widths:
+            vals = (fe if (label, C) == ("gather incidence", 3) else
+                    torch.randn((plan.order.shape[0], C), generator=gen, dtype=torch.float64,
+                                device=dev))
+            ke[f"{label} C={C}"] = check_csr_sum(f"{label} C={C}", vals, plan)
+    del plans, vals
 
     # ---- 6b. the stencil solve of phase 3, again: on a fresh solver (setup
     # built anew: kernel E's fixed order), then on phase 3's (its setup cache)
@@ -1125,6 +1132,7 @@ def run_gather_path(dev, res, state):
                 "hard case: the ladder's attempts were not recorded")
 
     d64 = kd["ordered f64 masked"]
+    e64 = ke["gather RBM group_plan C=6"]["f64"]
     return [
         {"name": "stiffness_apply", "route": "cuda", "source": "tpufem_torch/csrc/tet4_force.cu",
          "replaces": "tpufem/fem/assembly.py:60-97", "launches": launches["stiffness_apply"],
@@ -1133,15 +1141,16 @@ def run_gather_path(dev, res, state):
          **{k: d64[k] for k in ("device_us", "device_us_cold", "share", "share_repeated",
                                 "activities", "plan_bytes", "overlap", "blocks", "T", "N")},
          "shapes": kd},
+        # at the shape of most of its launches: the RBM group sum of every
+        # iteration of the f64 gather CG (6c), f64
         {"name": "csr_segment_sum", "route": "cuda",
          "source": "tpufem_torch/csrc/csr_segment_sum.cu",
-         "replaces": "tpufem/fem/assembly.py:110", "launches": launches["csr_segment_sum"],
+         "replaces": "tpufem/fem/precond.py:267-268", "launches": launches["csr_segment_sum"],
+         "shape": "gather RBM group_plan C=6", "dtype": "f64",
          "stencil_launches": state["stencil_csr_launches"],
-         "max_abs_err": ke["incidence C=3"]["max_abs_err"], "ms": ke["incidence C=3"]["ms"],
-         "plain_ms": ke["incidence C=3"]["plain_ms"], "bound_ms": ke["incidence C=3"]["bound_ms"],
-         "bound_by": ke["incidence C=3"]["bound_by"],
-         "library_ms": ke["incidence C=3"]["library_ms"],
-         "device_us": ke["incidence C=3"]["device_us"], "share": ke["incidence C=3"]["share"],
+         **{k: e64[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "device_us", "device_us_cold", "share",
+                                "library_device_us", "library_device_us_cold")},
          "shapes": ke},
     ]
 
@@ -1697,10 +1706,10 @@ def run_tet10(dev, state):
         "launches": launches["csr_segment_sum"],
         "shapes": {"tet10 T6 loads C=3": check_csr_sum("tet10 T6 midside loads C=3", f6,
                                                        solver._t6_plan(ut6)),
-                   "tet10 stress num C=6": check_csr_sum("tet10 nodal stress numerator C=6",
-                                                         num, cplan),
-                   "tet10 stress den C=1": check_csr_sum("tet10 nodal stress denominator C=1",
-                                                         den, cplan)}}
+                   "tet10 connectivity C=6": check_csr_sum(
+                       "tet10 connectivity (nodal stress numerator) C=6", num, cplan),
+                   "tet10 connectivity C=1": check_csr_sum(
+                       "tet10 connectivity (nodal stress denominator) C=1", den, cplan)}}
     del Jinv, vols, num, den, f6
     shape_of = {"flagship CLI": "DOF1M_TET10 B=1", "modal CLI tet10": "32x40x4 q=12"}
     entries = []

@@ -420,6 +420,34 @@ def test_rbm_coarse_inverse_matches_tpufem(wing):
     assert _rel(Ac_inv.numpy() @ v, np.asarray(jAc_inv) @ v) <= 1e-8
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_rbm_two_level_apply_matches_tpufem(wing, seed):
+    """The two-level apply M of make_rbm_two_level, whose group sum is kernel
+    E's once per f64 gather CG iteration (its plain version here), against
+    tpufem's with its two segment_sums, on the same Ac_inv, dvec and line
+    apply (a fixed diagonal scaling)."""
+    from tpufem.fem.precond import make_rbm_two_level as jmake_rbm_two_level
+    from tpufem_torch.fem.precond import make_rbm_two_level
+
+    m, _, tets, grads, vols, *_ = wing
+    bs = build_boundary_sets(m)
+    meta = m.meta
+    nj = meta["num_span_stations"]
+    ni = meta["num_stations"] // nj
+    group, G = build_rbm_groups(meta["station_id"], meta["slot"], ni, nj)
+    free = dirichlet_mask(m.num_nodes, bs.nroot_nodes, dtype=F64)
+    rbm = build_rbm_plan(group, G, m.tets)
+    Ac_inv, dvec = rbm_coarse_inverse(rbm, tets, torch.as_tensor(m.nodes), grads, vols, LAM, MU,
+                                      free)
+    rng = np.random.default_rng(seed)
+    line, r = rng.normal(size=(2, 3 * m.num_nodes))
+    M = make_rbm_two_level(lambda x: x * torch.as_tensor(line), Ac_inv, rbm, dvec, free)
+    jM = jmake_rbm_two_level(lambda x: x * jnp.asarray(line), jnp.asarray(Ac_inv.numpy()),
+                             jnp.asarray(group), G, jnp.asarray(dvec.numpy()),
+                             jnp.asarray(free.numpy()))
+    assert _rel(M(torch.as_tensor(r)).numpy(), np.asarray(jM(jnp.asarray(r)))) <= 1e-12
+
+
 def test_pcg_matches_tpufem(wing):
     m, _, tets, grads, vols, jg, jv, _ = wing
     bs = build_boundary_sets(m)

@@ -174,7 +174,7 @@ def test_port_imports_without_jax():
         "tpufem_torch.scripts.optimize_wing", "tpufem_torch.profile_nonlinear",
         "tpufem_torch.fem.tet10", "tpufem_torch.fem.tet10_stencil", "tpufem_torch.fem.refsolve",
         "tpufem_torch.fem.xprec", "tpufem_torch.scripts.solve_tet10_1m",
-        "tpufem_torch.profile_tet10",
+        "tpufem_torch.profile_tet10", "tpufem_torch.profile_csr",
     ]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"

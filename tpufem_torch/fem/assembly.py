@@ -32,7 +32,7 @@ SLOT_LIMIT = 2048  # what a block's 48 KB of shared memory hold in f64: the high
 
 class IncidencePlan(NamedTuple):
     """The per-node sum plan of the (tet*4 + corner) force rows: the CSR plan
-    of tets.reshape(-1) (the first four fields are a CsrPlan's, and
+    of tets.reshape(-1) (the first six fields are a CsrPlan's, and
     csr_segment_sum reads a plan by those names, so it takes this one too)
     and kernel D's cut of the nodes into blocks."""
 
@@ -40,6 +40,8 @@ class IncidencePlan(NamedTuple):
     starts: torch.Tensor  # (N+1,) int32: node n's rows are order[starts[n]:starts[n+1]]
     seg: torch.Tensor  # (4T,) int64: the node of each row of `order`
     num_segments: int
+    starts_host: np.ndarray  # (N+1,) int64: `starts` on the host (kernel E's cut)
+    launch: dict  # kernel E's cuts by row width, filled at first use (launch_plan)
     pos: torch.Tensor  # (4T,) int32: the CSR row of entry t*4+a (the inverse of `order`)
     bnode: torch.Tensor  # (n_blocks+1,) int32: block b owns the nodes bnode[b]:bnode[b+1]
     bt_start: torch.Tensor  # (n_blocks+1,) int32: block b's tets are btet[bt_start[b]:...[b+1]]
@@ -92,7 +94,7 @@ def build_incidence(tets, num_nodes: int, device="cpu") -> IncidencePlan:
 
     return IncidencePlan(order=to_dev(order), starts=to_dev(starts),
                          seg=to_dev(flat[order], np.int64), num_segments=int(num_nodes),
-                         pos=to_dev(pos), bnode=to_dev(bnode), bt_start=to_dev(bt_start),
+                         starts_host=starts, launch={}, pos=to_dev(pos), bnode=to_dev(bnode), bt_start=to_dev(bt_start),
                          btet=to_dev(pair_tet[by_block]), slots=slots,
                          overlap=len(pair_tet) / max(len(tets), 1))
 

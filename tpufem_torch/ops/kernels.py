@@ -90,9 +90,9 @@ _SIGNATURES = {
     # (r2, free4, y4, B, NI, NK, NJ, weld_te, TIr, TJr, stream)
     "tpufem_restrict_p_tiled_f32": [_P] * 3 + [ctypes.c_int] * 7 + [_P],
     "tpufem_restrict_p_tiled_f64": [_P] * 3 + [ctypes.c_int] * 7 + [_P],
-    # (vals, order, starts, out, N, C, stream)
-    "tpufem_csr_segment_sum_f32": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
-    "tpufem_csr_segment_sum_f64": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
+    # (vals, order, starts, tab, out, C, n_ranges, chunk_rows, range_segs, list_len, stream)
+    "tpufem_csr_segment_sum_ranges_f32": [_P] * 5 + [ctypes.c_int] * 5 + [_P],
+    "tpufem_csr_segment_sum_ranges_f64": [_P] * 5 + [ctypes.c_int] * 5 + [_P],
 }
 
 # what the last build printed (ptxas register/spill report) and how long it took

@@ -147,7 +147,13 @@ def device_time(fn, kernel: str, reps: int = 20, cold: bool = False) -> dict:
         half = len(kern) // 2
         out["device_us_cold"] = sum(kern[half:]) / (len(kern) - half)
         kern = kern[:half]
-        dev = dev[:(len(dev) - reps) // 2]
+        warm = (len(dev) - reps) // 2
+        # every activity of the flushed calls: the second half without its
+        # overwrites, each the first record of its call's group
+        per = (len(dev) - warm) // reps
+        out["all_device_us_cold"] = sum(e.time_range.elapsed_us() for i, e in
+                                        enumerate(dev[warm:]) if i % per) / reps
+        dev = dev[:warm]
     return {"device_us": sum(kern) / len(kern), "launches": len(kern) / reps,
             "activities": len(dev) / reps,
             "all_device_us": sum(e.time_range.elapsed_us() for e in dev) / reps, **out}
