@@ -127,18 +127,34 @@ trained checkpoint exists). Along the way:
      (f) kernel E on the flagship solver's own plans and operands, with
      phase 6's checks (the CPU plain version's bits, f64 and f32): the T6
      midside loads (C = 3) and the connectivity's nodal stress numerator
-     (C = 6) and denominator (C = 1);
+     (C = 6) and denominator (C = 1); then the tet10 gather engine: (g)
+     kernel N (tet10_force, the gather operator: mask, element forces at 4
+     Gauss points, per-node sum, Dirichlet identity in one launch) against
+     its plain version at the flagship, 32x40x4 and a sharp-TE 16x24x4, f64
+     and f32, masked and unmasked (f64 1e-12 of the largest entry, f32 no
+     worse than 2x the plain f32 error against f64, bitwise repeatable,
+     exactly 1 launch and 1 device activity), with event / device (repeated
+     and flushed) / plain times, the bound, torch.sparse.mm of the masked
+     matrix (assembled on the card, checked against N's function), the plan's
+     overlap and ptxas's registers; then, launch counters zeroed: (h) `solve_tet10_1m --engine
+     gather --refine 8`: converged, TRUE f64 rel <= 1e-5 on the device and
+     on the CPU, xprec <= 1e-5, max vM within 1e-3 of the record's and of
+     (c)'s, tip u_z < 0, root vM > 3x tip vM (iterations, launches per CG
+     iteration, the largest u difference from (c), timing and peak memory as
+     information); (i) solve_tet10_case (line + RBM two-level) and
+     Tet10MGSolver, f64, tol 1e-9, at tpufem's test grid 16x16x4: u within
+     1e-7 and the p-MG in fewer iterations; kernel N launched;
  10. prints the wall time of every phase, the peak device memory of the
      phase-3 solve, the training phase, the gather solve, the dynamics, the
-     design and the tet10 phase, the kernels' JSON line, then {"ok": true,
-     "device": {...}}.
+     design, the tet10 phase and its gather part, the kernels' JSON line,
+     then {"ok": true, "device": {...}}.
 
 Every phase raises on failure; the script then exits nonzero and prints no
 result. Usage: python3 chip_smoke.py   (one card, no arguments)
 
-Its phases took 218-263 s (phase 6: 31-37 s with kernel E at every plan,
-phase 7: 31-42 s, phase 8: 69-87 s, phase 9: 39-46 s) on an NVIDIA H100
-80GB HBM3 at 700 W.
+Its phases took 303-307 s (phase 6: 33-36 s with kernel E at every plan,
+phase 7: 38 s, phase 8: 78-83 s, phase 9: 83-101 s with the gather engine)
+on an NVIDIA H100 80GB HBM3 at 700 W.
 """
 
 from __future__ import annotations
@@ -1538,12 +1554,13 @@ TET10_MODAL_RES = (8, 10, 2)  # tpufem's WingModal10 test grid
 
 def tet10_counters():
     from tpufem_torch.fem import stencil as st
+    from tpufem_torch.fem import tet10 as tt10
     from tpufem_torch.fem import tet10_stencil as ts
     from tpufem_torch.ops import csr_segment_sum as cs
 
     return {"strain_apply10": ts.strain_apply10, "prolong_p": ts.prolong_p,
             "restrict_p": ts.restrict_p, "strain_apply": st.strain_apply,
-            "csr_segment_sum": cs.csr_segment_sum}
+            "csr_segment_sum": cs.csr_segment_sum, "tet10_force": tt10.tet10_force}
 
 
 def tet10_true_residual_cpu(res, p4, u_nodes, upper_t6, lam, mu):
@@ -1624,14 +1641,14 @@ def run_tet10(dev, state):
     d = rec["detail"]
     ref = json.loads(TET10_RECORD.read_text())["detail"]
     out, solver, mesh = extra["out"], extra["solver"], extra["mesh"]
-    u = out.u[:, :, 0]
+    u = out.u
     res = solver.res
     ut6 = tet10_upper_t6(solver.t10, extra["sets"].surf_upper_faces)
     rel_cpu = tet10_true_residual_cpu(res, pt.FLAGSHIP_P4, u[:, :, None], ut6, lam, mu)
     n10 = solver.t10.nodes10(mesh.nodes)
     y, span = n10[:, 1], n10[:, 1].max()
     uz_tip = u[y > 0.95 * span, 2].mean()
-    vm = out.vm[:, 0]
+    vm = out.vm
     vm_root, vm_tip = vm[y < 0.25 * span].mean(), vm[y > 0.75 * span].mean()
     dvm = abs(d["max_vm_mpa"] - ref["max_vm_mpa"]) / ref["max_vm_mpa"]
     print(f"[tet10] flagship CLI at {res.key} ({d['dof']} DOF, {d['num_tet10']} tets) on "
@@ -1649,7 +1666,7 @@ def run_tet10(dev, state):
     require(dvm <= 1e-3, f"flagship max vM {d['max_vm_mpa']} vs the record's {ref['max_vm_mpa']}")
     require(uz_tip < 0 and vm_root > 3.0 * vm_tip and np.isfinite(u).all(),
             f"flagship physics: tip u_z {uz_tip:.3e}, root vM {vm_root:.3e}, tip {vm_tip:.3e}")
-    state["tet10"] = {"cli": rec, "true_rel_cpu": rel_cpu}
+    state["tet10"] = {"cli": rec, "true_rel_cpu": rel_cpu, "u": u}
 
     with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="smoke_tet10_") as root:
         # ---- 9d. the modal CLI with --element tet10 at its defaults
@@ -1737,7 +1754,153 @@ def run_tet10(dev, state):
                                                    "library_device_us")}
                              for k, r in rs.items() if k.startswith(name)}
                        for lbl, rs in recs.items()}})
+    entries.append(run_tet10_gather(dev, state, smi, lam, mu))
     return entries
+
+
+def run_tet10_gather(dev, state, smi, lam, mu):
+    """Phase 9g-9i, the tet10 gather engine: (g) kernel N against its plain
+    version at N_SHAPES; then, launch counters zeroed, (h) the flagship CLI
+    with --engine gather and (i) solve_tet10_case against Tet10MGSolver at
+    tpufem's test grid, the counts read after. Returns kernel N's report
+    entry."""
+    from tpufem_torch import profile_tet10 as pt
+    from tpufem_torch.fem.tet10 import (
+        solve_tet10_case,
+        tet10_from_tet4,
+        tet10_root_nodes,
+        tet10_upper_t6,
+    )
+    from tpufem_torch.fem.tet10_mg import Tet10MGSolver
+    from tpufem_torch.mesher import WingMeshResolution, structured_wing_mesh
+    from tpufem_torch.ops.kernels import build_info, ptxas_report
+    from tpufem_torch.scripts import solve_tet10_1m
+    from tpufem_torch.sets import build_boundary_sets
+
+    # ---- 9g. kernel N at the flagship, 32x40x4 and a sharp-TE 16x24x4
+    regs = {k: v for k, v in ptxas_report(build_info.get("log", "")).items()
+            if "tet10_force_kernel" in k}
+    print(f"[kernel N] ptxas: " + "; ".join(f"{k}: {r} registers, {ss} / {sl} B spilled"
+                                           for k, (r, ss, sl) in sorted(regs.items())), flush=True)
+    nrec = {}
+    for label, (res, p4) in pt.N_SHAPES.items():
+        nrec[label] = pt.measure_N(label, res, p4, dev)
+        for rec in nrec[label].values():
+            print(pt.line(rec) + f" [{smi}]", flush=True)
+
+    counters = tet10_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    by_case = {}
+
+    def mark(case):
+        by_case[case] = {n: c.launches - sum(b[n] for b in by_case.values())
+                         for n, c in counters.items()}
+
+    # ---- 9h. the flagship CLI through the gather engine
+    t0 = time.perf_counter()
+    rec, extra = solve_tet10_1m.run(["--refine", "8", "--device", "cuda", "--engine", "gather"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mark("gather flagship CLI")
+    d = rec["detail"]
+    ref = json.loads(TET10_RECORD.read_text())["detail"]
+    st9c = state["tet10"]
+    out, solver, mesh = extra["out"], extra["solver"], extra["mesh"]
+    u = out.u
+    res = solver.res
+    ut6 = tet10_upper_t6(solver.t10, extra["sets"].surf_upper_faces)
+    rel_cpu = tet10_true_residual_cpu(res, pt.FLAGSHIP_P4, u[:, :, None], ut6, lam, mu)
+    n10 = solver.t10.nodes10(mesh.nodes)
+    y, span = n10[:, 1], n10[:, 1].max()
+    uz_tip = u[y > 0.95 * span, 2].mean()
+    vm = out.vm
+    vm_root, vm_tip = vm[y < 0.25 * span].mean(), vm[y > 0.75 * span].mean()
+    dvm = abs(d["max_vm_mpa"] - ref["max_vm_mpa"]) / ref["max_vm_mpa"]
+    vm9c = st9c["cli"]["detail"]["max_vm_mpa"]
+    dvm9c = abs(d["max_vm_mpa"] - vm9c) / vm9c
+    du = float(np.abs(u - st9c["u"]).max() / np.abs(st9c["u"]).max())
+    per_iter = counters["tet10_force"].launches / max(d["iters"], 1)
+    print(f"[tet10 gather] flagship CLI --engine gather at {res.key} ({d['dof']} DOF) on "
+          f"{d['device']} [{smi}]: {d['iters']} iterations (the stencil engine in 9c: "
+          f"{st9c['cli']['detail']['iters']}), converged {d['converged']}, TRUE f64 rel "
+          f"{d['rel_residual']:.3e} on the device, {rel_cpu:.3e} recomputed on the CPU, 80-bit "
+          f"xprec {d['xprec_rel_residual']:.3e}; max vM {d['max_vm_mpa']} MPa (record "
+          f"{ref['max_vm_mpa']}, rel {dvm:.2e}; 9c {vm9c}, rel {dvm9c:.2e}); largest u difference "
+          f"from 9c {du:.3e} of max |u|; tip u_z {uz_tip:.4e} m, root vM {vm_root:.4e} vs tip "
+          f"{vm_tip:.4e}; kernel N {counters['tet10_force'].launches} launches "
+          f"({per_iter:.2f} per CG iteration); CLI wall {wall:.3f} s, solve {rec['value']} s, "
+          f"timing {d['timing_s']}, peak device memory {d['peak_device_memory_bytes']} B",
+          flush=True)
+    require(d["converged"] and d["rel_residual"] <= 1e-5, f"gather flagship: {d}")
+    require(rel_cpu <= 1e-5, f"gather flagship TRUE rel on the CPU {rel_cpu:.3e}")
+    require(d["xprec_rel_residual"] <= 1e-5, f"gather flagship xprec {d['xprec_rel_residual']}")
+    require(dvm <= 1e-3 and dvm9c <= 1e-3,
+            f"gather flagship max vM {d['max_vm_mpa']} vs the record's {ref['max_vm_mpa']} and "
+            f"9c's {vm9c}")
+    require(uz_tip < 0 and vm_root > 3.0 * vm_tip and np.isfinite(u).all(),
+            f"gather flagship physics: tip u_z {uz_tip:.3e}, root vM {vm_root:.3e}, tip "
+            f"{vm_tip:.3e}")
+    del extra, solver, out
+    state["tet10_gather"] = {"cli": rec, "true_rel_cpu": rel_cpu, "u_diff_9c": du}
+
+    # ---- 9i. solve_tet10_case at tpufem's test grid against Tet10MGSolver, f64
+    case_res = WingMeshResolution(16, 16, 4, 0.006, "le")
+    case_p4 = (1.4, 0.3, 15.0, 0.09)
+    cmesh = structured_wing_mesh(*case_p4, case_res)
+    cbs = build_boundary_sets(cmesh)
+    ct10 = tet10_from_tet4(cmesh)
+    t0 = time.perf_counter()
+    u_c, _, it_c, rel_c, conv_c = solve_tet10_case(
+        ct10, tet10_root_nodes(ct10), tet10_upper_t6(ct10, cbs.surf_upper_faces), PRESSURE,
+        tol=1e-9, maxiter=8000, dtype=torch.float64, nj2=2 * case_res.n_span + 1, device=dev)
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    mark("solve_tet10_case 16x16x4")
+    t0 = time.perf_counter()
+    mg = Tet10MGSolver(case_res, ct10, dtype=torch.float64, device=dev).solve(
+        case_p4, cbs.surf_upper_faces, pressure=PRESSURE, tol=1e-9, maxiter=2000)
+    torch.cuda.synchronize()
+    wall_mg = time.perf_counter() - t0
+    mark("Tet10MGSolver 16x16x4")
+    du_c = float(np.abs(mg.u - u_c).max() / np.abs(u_c).max())
+    print(f"[tet10 gather] 16x16x4 f64 tol 1e-9: solve_tet10_case (line + RBM two-level) "
+          f"{it_c} iterations, rel {rel_c:.3e}, {wall_c:.3f} s; Tet10MGSolver {mg.iters} "
+          f"iterations, rel {mg.rel_residual:.3e}, {wall_mg:.3f} s; largest u difference "
+          f"{du_c:.3e} of max |u| (bar 1e-7) [{smi}]", flush=True)
+    require(conv_c and mg.converged, f"16x16x4: case converged {conv_c}, p-MG {mg.converged}")
+    require(du_c <= 1e-7, f"16x16x4: p-MG and two-level differ by {du_c:.3e}")
+    require(mg.iters < it_c, f"16x16x4: p-MG {mg.iters} iterations, two-level {it_c}")
+
+    state["peak_bytes"]["tet10 gather phase"] = torch.cuda.max_memory_allocated()
+    launches = {n: c.launches for n, c in counters.items()}
+    print(f"[tet10 gather] kernel launches (9h-9i): {launches}; by case {by_case}", flush=True)
+    for name in ("tet10_force", "csr_segment_sum", "strain_apply"):
+        require(launches[name] > 0, f"{name} was not launched on the tet10 gather path")
+
+    rec32, rec64 = nrec["DOF1M_TET10"]["f32 masked"], nrec["DOF1M_TET10"]["f64 masked"]
+    return {
+        "name": "tet10_force", "route": "cuda", "source": pt.SOURCES["tet10_force"],
+        "design": pt.DESIGNS["tet10_force"], "replaces": pt.REPLACES["tet10_force"],
+        "kernel_letter": "N", "launches": launches["tet10_force"],
+        "launches_by_case": {c: n["tet10_force"] for c, n in by_case.items()},
+        "shape": "DOF1M_TET10 masked", "dtype": "f32",
+        **{k: rec32[k] for k in ("max_abs_err", "ms", "plain_ms")},
+        "bound_ms": rec32["bound_us"] / 1e3, "bound_by": rec32["bound_by"],
+        "library_ms": rec32["library_ms"],
+        **{k: rec32[k] for k in ("device_us", "device_us_cold", "share", "share_repeated",
+                                 "activities", "bytes", "flops", "overlap", "blocks")},
+        "ptxas": {k: list(v) for k, v in regs.items()},
+        "f64": {k: rec64[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_us", "bound_by",
+                                      "device_us", "device_us_cold", "share", "library_ms")},
+        "shapes": {lbl: {k: {f: r.get(f) for f in ("grid", "T", "N", "overlap", "max_abs_err",
+                                                   "err_vs_f64", "plain_err_vs_f64", "ms",
+                                                   "plain_ms", "bound_us", "bound_by",
+                                                   "device_us", "device_us_cold", "share",
+                                                   "library_ms", "library_device_us")}
+                         for k, r in rs.items()}
+                   for lbl, rs in nrec.items()}}
 
 
 if __name__ == "__main__":

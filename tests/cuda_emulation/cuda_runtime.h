@@ -39,6 +39,9 @@ struct dim3 {
 };
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 gridDim, blockDim;
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) double2 { double x, y; };
+struct alignas(16) int4 { int x, y, z, w; };
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum {

@@ -999,3 +999,85 @@ def test_tet10_solve_on_cuda_matches_cpu(cuda):
             for d in (cuda, "cpu")]
     assert all(o.converged.all() for o in outs)
     assert np.abs(outs[0].u - outs[1].u).max() <= 1e-7 * np.abs(outs[1].u).max()
+
+
+# ------------------------------------------------- kernel N (the tet10 gather operator)
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("slots", [None, 37], ids=["SLOTS", "37-row-blocks"])
+@pytest.mark.parametrize("grid", ["8x6x2-floored", "6x4x2-sharp-te"])
+def test_tet10_force_kernel_matches_plain(cuda, grid, slots, dtype, masked):
+    """Kernel N against tet10_force_plain (f64 1e-12 of the largest entry;
+    f32 against the f64 result no worse than 2x the plain f32 version), one
+    launch, the same bits twice, one device activity, the Dirichlet rows the
+    identity; at the plan's SLOTS and at odd 37-row blocks."""
+    from tpufem_torch.fem import tet10 as tt10
+    from tpufem_torch.profile_tet10 import n_inputs
+
+    J64, v64, conn, x64, f64, _, t10 = n_inputs(TET10_GRIDS[grid], P4[0], cuda)
+    plan = tas.build_incidence(t10.tet10, t10.num_nodes, cuda, slots=slots)
+    ref64 = tt10.tet10_force_plain(J64, v64, conn, x64, LAM, MU, plan, f64 if masked else None)
+    J, v, x = J64.to(dtype), v64.to(dtype), x64.to(dtype)
+    free = f64.to(dtype) if masked else None
+    call = lambda: tt10.tet10_force(J, v, conn, x, LAM, MU, x.shape[0], plan=plan,  # noqa: E731
+                                    free=free)
+    before = tt10.tet10_force.launches
+    y = call()
+    assert tt10.tet10_force.launches == before + 1
+    assert torch.equal(y, call())  # no atomics
+    scale = ref64.abs().max().item()
+    if dtype == torch.float64:
+        assert (y - ref64).abs().max().item() <= 1e-12 * scale
+    else:
+        plain = tt10.tet10_force_plain(J, v, conn, x, LAM, MU, plan, free)
+        assert ((y.double() - ref64).abs().max().item()
+                <= 2 * (plain.double() - ref64).abs().max().item())
+    if masked:
+        root = f64[:, 0] == 0
+        assert torch.equal(y[root], x[root])
+    r = device_time(call, "tet10_force")
+    assert r["launches"] == 1 and r["activities"] == 1, r
+
+
+def test_tet10_force_rejects_bad_input(cuda):
+    from tpufem_torch.fem import tet10 as tt10
+    from tpufem_torch.profile_tet10 import n_inputs
+
+    J, v, conn, x, free, plan, t10 = n_inputs(TET10_GRIDS["8x6x2-floored"], P4[0], cuda)
+    N = x.shape[0]
+    for bad in (dict(x=x.float()), dict(x=x.t().contiguous().t()), dict(conn=conn.long()),
+                dict(free=free.cpu()), dict(plan=tt10.connectivity_plan(t10.tet10, N, cuda)),
+                dict(x=x.clone().requires_grad_())):
+        kw = {"J": J, "v": v, "conn": conn, "x": x, "free": free, "plan": plan, **bad}
+        with pytest.raises((ValueError, TypeError)):
+            tt10.tet10_force(kw["J"], kw["v"], kw["conn"], kw["x"], LAM, MU, N, plan=kw["plan"],
+                             free=kw["free"])
+
+
+def test_tet10_gather_solves_on_cuda_match_cpu(cuda):
+    """Tet10MGSolver's refinement solve and solve_tet10_case on the card
+    (kernels N, E and B) agree with the CPU's."""
+    from tpufem_torch.fem.tet10 import (
+        solve_tet10_case,
+        tet10_from_tet4,
+        tet10_root_nodes,
+        tet10_upper_t6,
+    )
+    from tpufem_torch.fem.tet10_mg import Tet10MGSolver
+
+    res = TET10_GRIDS["8x6x2-floored"]
+    mesh = structured_wing_mesh(*P4[0], res)
+    bs = build_boundary_sets(mesh)
+    t10 = tet10_from_tet4(mesh)
+    outs = [Tet10MGSolver(res, t10, device=d).solve(P4[0], bs.surf_upper_faces, tol=1e-7,
+                                                    maxiter=4000, refine_steps=8)
+            for d in (cuda, "cpu")]
+    assert all(o.converged for o in outs)
+    assert np.abs(outs[0].u - outs[1].u).max() <= 1e-6 * np.abs(outs[1].u).max()
+    cases = [solve_tet10_case(t10, tet10_root_nodes(t10), tet10_upper_t6(t10, bs.surf_upper_faces),
+                              5e3, tol=1e-9, maxiter=8000, dtype=torch.float64,
+                              nj2=2 * res.n_span + 1, device=d) for d in (cuda, "cpu")]
+    assert cases[0][4] and cases[1][4]
+    assert np.abs(cases[0][0] - cases[1][0]).max() <= 1e-7 * np.abs(cases[1][0]).max()

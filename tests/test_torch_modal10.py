@@ -102,10 +102,13 @@ def test_solve_tet10_cli_on_cpu(tiny_flagship, capsys):
     assert d["converged"] and d["mode"] == "f64 outer" and d["xprec_rel_residual"] is None
 
 
-def test_solve_tet10_cli_refuses_gather_and_defaults_to_the_card(tiny_flagship, monkeypatch,
-                                                                 capsys):
-    assert solve_tet10_1m.main(["--engine", "gather", "--device", "cpu"]) != 0
-    assert "not ported: the tet10 gather engine" in capsys.readouterr().err
+def test_solve_tet10_cli_gather_engine_and_defaults_to_the_card(tiny_flagship, monkeypatch,
+                                                               capsys):
+    assert solve_tet10_1m.main(["--engine", "gather", "--device", "cpu", "--refine", "8",
+                                "--tol", "1e-6"]) == 0
+    d = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["detail"]
+    assert d["engine"] == "gather" and d["converged"] and d["rel_residual"] <= 1e-6
+    assert d["xprec_rel_residual"] <= 1e-6 and d["max_vm_mpa"] > 0 and "solve_s" in d["timing_s"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         solve_tet10_1m.main(["--no_xprec"])

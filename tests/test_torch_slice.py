@@ -174,7 +174,7 @@ def test_port_imports_without_jax():
         "tpufem_torch.scripts.optimize_wing", "tpufem_torch.profile_nonlinear",
         "tpufem_torch.fem.tet10", "tpufem_torch.fem.tet10_stencil", "tpufem_torch.fem.refsolve",
         "tpufem_torch.fem.xprec", "tpufem_torch.scripts.solve_tet10_1m",
-        "tpufem_torch.profile_tet10", "tpufem_torch.profile_csr",
+        "tpufem_torch.profile_tet10", "tpufem_torch.profile_csr", "tpufem_torch.fem.tet10_mg",
     ]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -189,13 +189,16 @@ def test_port_imports_without_jax():
 
 @pytest.mark.parametrize("entry", ["WingStencilT", "solve_wing_case", "Trainer",
                                    "Trainer.load_checkpoint", "WingNonlinear",
-                                   "DifferentiableWingFEM", "Tet10StencilT", "WingModal10"])
+                                   "DifferentiableWingFEM", "Tet10StencilT", "WingModal10",
+                                   "Tet10MGSolver", "solve_tet10_case"])
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
     """The port's entry points run on the card unless the caller asks for the
     CPU: with no CUDA device, the default raises instead of falling back."""
     from tpufem_torch.fem.adjoint import DifferentiableWingFEM
     from tpufem_torch.fem.modal import WingModal10
     from tpufem_torch.fem.nonlinear import WingNonlinear
+    from tpufem_torch.fem.tet10 import solve_tet10_case, tet10_from_tet4, tet10_root_nodes
+    from tpufem_torch.fem.tet10_mg import Tet10MGSolver
     from tpufem_torch.fem.tet10_stencil import Tet10StencilT
     from tpufem_torch.mesher import structured_wing_mesh
     from tpufem_torch.models.train import TrainConfig, Trainer
@@ -212,6 +215,10 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
         "DifferentiableWingFEM": lambda: DifferentiableWingFEM(res, P4[:1]),
         "Tet10StencilT": lambda: Tet10StencilT(res),
         "WingModal10": lambda: WingModal10(res, P4[0]),
+        "Tet10MGSolver": lambda: Tet10MGSolver(res, tet10_from_tet4(mesh)),
+        "solve_tet10_case": lambda: solve_tet10_case(
+            tet10_from_tet4(mesh), tet10_root_nodes(tet10_from_tet4(mesh)),
+            tet10_from_tet4(mesh).surf_t6[:1], 5e3),
     }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -16,7 +16,10 @@ without nvcc:
   tolerances (L: f64 1e-12, f32 1e-5; M: 1e-14, 1e-6 of the largest entry),
   at the default tiles and at odd ones, twice with the same bits;
 - profile_tet10 --compare refuses a malformed LABEL=DIR before it builds
-  anything.
+  anything;
+- kernel N's library yardstick (profile_tet10.library_matrix, assembled on
+  the tensors' device) is the masked matrix of refsolve.assemble_K10, and
+  its product is tet10_force_plain's masked apply.
 """
 
 import ctypes
@@ -111,7 +114,7 @@ def l_stores(res: WingMeshResolution, plan) -> np.ndarray:
 def test_dndxi_table_in_source_matches_tpufem():
     """Kernel L's compile-time DNDXI equals tpufem's within one f64 ulp, and
     its zero entries (the terms the kernel drops) are tpufem's zeros."""
-    src = macro_numbers("strain_apply10.cu", "TPUFEM_DNDXI").reshape(4, 10, 3)
+    src = macro_numbers("tet10.cuh", "TPUFEM_DNDXI").reshape(4, 10, 3)
     ref = np.asarray(TPUFEM_DNDXI, np.float64)
     assert np.all(np.abs(src - ref) <= np.spacing(np.abs(ref)))
     np.testing.assert_array_equal(src == 0.0, ref == 0.0)
@@ -273,3 +276,29 @@ def test_kernels_emulated_match_plain(emulated, case, dtype):
         y4 = emulated_R(emulated["p_transfer"], res, r2, free4, plan)
         assert (y4 - ref).abs().max().item() <= tol_m * ref.abs().max().item(), plan
         assert torch.equal(y4, emulated_R(emulated["p_transfer"], res, r2, free4, plan))
+
+
+@pytest.mark.parametrize("te", [0.0, 0.006], ids=["sharp TE", "floored"])
+def test_library_matrix_is_the_masked_assembled_K(te):
+    """F K F + (I - F) of refsolve.assemble_K10 (scipy, f64) to 1e-12 of its
+    largest entry, each row's columns ascending; A x equal to kernel N's
+    plain masked function to 1e-12."""
+    import scipy.sparse as ssp
+
+    from tpufem_torch.fem import tet10 as tt10
+    from tpufem_torch.fem.refsolve import assemble_K10
+
+    res = WingMeshResolution(6, 4, 2, te, "le")
+    Jinv, vols, conn, x, free, plan, t10 = profile_tet10.n_inputs(res, (1.4, 0.3, 15.0, 0.09),
+                                                                  torch.device("cpu"))
+    A = profile_tet10.library_matrix(Jinv, vols, conn, free, LAM, MU)
+    K = assemble_K10(t10.nodes10(t10.mesh4.nodes), t10.tet10, Material())
+    f = free.reshape(-1).numpy()
+    want = (ssp.diags(f) @ K @ ssp.diags(f) + ssp.diags(1.0 - f)).toarray()
+    got = A.to_dense().numpy()
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+    crow, col = A.crow_indices().numpy(), A.col_indices().numpy()
+    assert all((np.diff(col[crow[r]:crow[r + 1]]) > 0).all() for r in range(len(crow) - 1))
+    y = torch.sparse.mm(A, x.reshape(-1, 1)).reshape(-1, 3)
+    ref = tt10.tet10_force_plain(Jinv, vols, conn, x, LAM, MU, plan, free)
+    assert (y - ref).abs().max() <= 1e-12 * ref.abs().max()

@@ -23,33 +23,23 @@
 // per tet in f64), volumes, ids, the plan, x and free once and write y once;
 // the arithmetic (about 180 flops per evaluated tet) stays below that.
 //
-// Design: tet-centric, block-local sum. The nodes are cut into contiguous
-// ranges of at most `slots` incident (tet, corner) entries, one range per
-// block: block b owns the nodes [bnode[b], bnode[b+1]), whose entries are the
-// CSR rows [starts[bnode[b]], starts[bnode[b+1]]) of the stable argsort of
-// tets.reshape(-1). The plan lists the tets that touch the range
-// (btet[bt_start[b]:bt_start[b+1]], ascending). A thread evaluates one listed
-// tet at a time, whole: the 12 gradients, the 4 ids and the 4 CSR rows of its
-// entries (pos[t*4+a]) by 16-byte loads, the 4 masked corner displacements
-// gathered, sigma formed once. Each corner force whose node lies in the
-// block's range goes to shared memory at its entry's row; after one barrier a
-// thread per (node, component) adds the node's rows in ascending order from
-// zero and writes y with the Dirichlet identity. No atomics: the sum runs in
-// the plan's order and two launches give the same bits. A tet on a range
-// boundary is evaluated by every block it touches (the plan's `overlap`: 2.11
-// on the structured wing mesh's numbering, 4 at worst); a node that no tet
-// touches gets y = x * (1 - free). Indices are 32-bit (the wrapper checks 4T
-// and 3N).
-//
-// tet4_stress is the per-element arithmetic; a sibling element (tet10, a
-// trailing batch axis) can take the same walk with another body.
+// Design: tet-centric, block-local sum: the incidence walk
+// (csrc/incidence_walk.cuh; kernel N takes it with a tet10 body) with a tet4
+// body. A thread evaluates one listed tet at a time, whole: the 12 gradients,
+// the 4 ids and the 4 CSR rows of its entries (pos[t*4+a]) by 16-byte loads,
+// the 4 masked corner displacements gathered, sigma formed once; each corner
+// force whose node lies in the block's range goes to shared memory at its
+// entry's row. A tet is evaluated by every block it touches (the plan's
+// `overlap`: 2.11 on the structured wing mesh's numbering, 4 at worst).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "incidence_walk.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using incidence::kThreads;
 
 // a tet's 12 gradients (4 corners x 3 components) by 16-byte loads
 __device__ __forceinline__ void load_grads(const float* __restrict__ p, float (&g)[4][3]) {
@@ -113,15 +103,8 @@ stiffness_apply_kernel(const T* __restrict__ grads, const T* __restrict__ vols,
                        const int32_t* __restrict__ bnode, const int32_t* __restrict__ starts,
                        const T* __restrict__ x, const T* __restrict__ free, T* __restrict__ y,
                        T lam, T mu) {
-  // the corner forces of the block's entries, by CSR row less the block's first
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sh = reinterpret_cast<T*>(smem_raw);
-  const int b = blockIdx.x;
-  const int n0 = __ldg(bnode + b), n1 = __ldg(bnode + b + 1);
-  const int row0 = __ldg(starts + n0);
-  const int l1 = __ldg(bt_start + b + 1);
-  for (int l = __ldg(bt_start + b) + threadIdx.x; l < l1; l += kThreads) {
-    const int t = __ldg(btet + l);
+  const incidence::Plan plan{pos, btet, bt_start, bnode, starts};
+  incidence::walk<4>(plan, x, free, y, [&](int t, const incidence::Block<T, 4>& blk) {
     const int4 ids = __ldg(reinterpret_cast<const int4*>(tets) + t);
     const int4 p4 = __ldg(reinterpret_cast<const int4*>(pos) + t);
     T g[4][3], ue[4][3], s[3][3];
@@ -134,30 +117,15 @@ stiffness_apply_kernel(const T* __restrict__ grads, const T* __restrict__ vols,
     tet4_stress(g, ue, lam, mu, s);
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      if (id[a] >= n0 && id[a] < n1) {
-        T* o = sh + (pp[a] - row0) * 3;
+      if (blk.owns(id[a])) {
+        T* o = blk.at_row(pp[a]);
 #pragma unroll
         for (int d = 0; d < 3; ++d) {
           o[d] = vol * (s[d][0] * g[a][0] + s[d][1] * g[a][1] + s[d][2] * g[a][2]);
         }
       }
     }
-  }
-  __syncthreads();
-  const int nvals = (n1 - n0) * 3;
-  for (int i = threadIdx.x; i < nvals; i += kThreads) {
-    const int nl = i / 3, c = i - nl * 3;
-    const int r1 = __ldg(starts + n0 + nl + 1) - row0;
-    T acc = 0;
-    for (int r = __ldg(starts + n0 + nl) - row0; r < r1; ++r) acc += sh[r * 3 + c];
-    const int o = n0 * 3 + i;
-    if (free != nullptr) {
-      const T m = __ldg(free + o);
-      y[o] = acc * m + __ldg(x + o) * (T(1) - m);
-    } else {
-      y[o] = acc;
-    }
-  }
+  });
 }
 
 template <typename T>
@@ -166,7 +134,7 @@ int launch(const void* grads, const void* vols, const void* tets, const void* po
            const void* x, const void* free, void* y, int n_blocks, int slots, double lam,
            double mu, void* stream) {
   if (n_blocks > 0) {
-    const int bytes = slots * 3 * static_cast<int>(sizeof(T));  // at most 48 KB: the plan's cap
+    const int bytes = incidence::smem_bytes<T>(slots);
     stiffness_apply_kernel<T><<<n_blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(grads), static_cast<const T*>(vols),
         static_cast<const int32_t*>(tets), static_cast<const int32_t*>(pos),

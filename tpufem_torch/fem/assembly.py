@@ -31,46 +31,49 @@ SLOT_LIMIT = 2048  # what a block's 48 KB of shared memory hold in f64: the high
 
 
 class IncidencePlan(NamedTuple):
-    """The per-node sum plan of the (tet*4 + corner) force rows: the CSR plan
-    of tets.reshape(-1) (the first six fields are a CsrPlan's, and
-    csr_segment_sum reads a plan by those names, so it takes this one too)
-    and kernel D's cut of the nodes into blocks."""
+    """The per-node sum plan of the (tet*k + corner) force rows of a (T,k)
+    connectivity: the CSR plan of tets.reshape(-1) (the first six fields are
+    a CsrPlan's, and csr_segment_sum reads a plan by those names, so it takes
+    this one too) and the cut of the nodes into blocks that kernels D (k = 4)
+    and N (tet10, k = 10) walk."""
 
-    order: torch.Tensor  # (4T,) int32: stable argsort of tets.reshape(-1)
+    order: torch.Tensor  # (kT,) int32: stable argsort of tets.reshape(-1)
     starts: torch.Tensor  # (N+1,) int32: node n's rows are order[starts[n]:starts[n+1]]
-    seg: torch.Tensor  # (4T,) int64: the node of each row of `order`
+    seg: torch.Tensor  # (kT,) int64: the node of each row of `order`
     num_segments: int
     starts_host: np.ndarray  # (N+1,) int64: `starts` on the host (kernel E's cut)
     launch: dict  # kernel E's cuts by row width, filled at first use (launch_plan)
-    pos: torch.Tensor  # (4T,) int32: the CSR row of entry t*4+a (the inverse of `order`)
+    pos: torch.Tensor  # (kT,) int32: the CSR row of entry t*k+a (the inverse of `order`)
     bnode: torch.Tensor  # (n_blocks+1,) int32: block b owns the nodes bnode[b]:bnode[b+1]
     bt_start: torch.Tensor  # (n_blocks+1,) int32: block b's tets are btet[bt_start[b]:...[b+1]]
     btet: torch.Tensor  # int32: per block, ascending, the tets with a corner in its range
     slots: int  # no block's nodes hold more rows than this
-    overlap: float  # len(btet) / T: how often a tet is evaluated (1 to 4)
+    overlap: float  # len(btet) / T: how often a tet is evaluated (1 to k)
 
 
-def build_incidence(tets, num_nodes: int, device="cpu") -> IncidencePlan:
-    """The incidence plan of `tets` (T,4) over `num_nodes` nodes, built on
-    the host once per topology.
+def build_incidence(tets, num_nodes: int, device="cpu", slots: int | None = None
+                    ) -> IncidencePlan:
+    """The incidence plan of `tets` (T,k) over `num_nodes` nodes, built on
+    the host once per topology; `slots` (default SLOTS) caps a block's rows.
 
     tpufem stored the same stable argsort as a dense (N, V) padded gather
     table, because XLA:TPU's scatter serialized on duplicate indices
     (assembly.py:20-25). The port keeps it as CSR, walked row by row in a
-    fixed order: no padding, no atomics. For kernel D the nodes are cut
-    greedily into contiguous ranges of at most SLOTS rows (a node of higher
+    fixed order: no padding, no atomics. For kernels D and N the nodes are cut
+    greedily into contiguous ranges of at most `slots` rows (a node of higher
     valence gets a block of its own, up to SLOT_LIMIT rows, what a block's
     shared memory holds; beyond that it raises), and each range lists the
     tets that touch it.
     """
     if isinstance(tets, torch.Tensor):
         tets = tets.cpu().numpy()
-    tets = np.asarray(tets).reshape(-1, 4)
+    tets = np.asarray(tets)
+    k = tets.shape[1]
     order, starts, flat = csr_arrays(tets, num_nodes)
-    slots = max(SLOTS, int(np.diff(starts).max(initial=0)))
+    slots = max(SLOTS if slots is None else slots, int(np.diff(starts).max(initial=0)))
     if slots > SLOT_LIMIT:
-        raise ValueError(f"a node with {slots} incident tets: kernel D's blocks hold at most "
-                         f"{SLOT_LIMIT}")
+        raise ValueError(f"a node with {slots} incident tets: kernel D's and N's blocks hold at "
+                         f"most {SLOT_LIMIT}")
     pos = np.empty(len(order), np.int32)
     pos[order] = np.arange(len(order), dtype=np.int32)
     bnode = [0]
@@ -80,7 +83,7 @@ def build_incidence(tets, num_nodes: int, device="cpu") -> IncidencePlan:
     n_blocks = len(bnode) - 1
     # every (block, tet) pair once: the distinct blocks of each tet's corners, then
     # block-major with the tets of a block ascending (a stable sort by block)
-    blocks = np.sort(np.repeat(np.arange(n_blocks), np.diff(bnode))[flat].reshape(-1, 4), axis=1)
+    blocks = np.sort(np.repeat(np.arange(n_blocks), np.diff(bnode))[flat].reshape(-1, k), axis=1)
     first = np.ones(blocks.shape, bool)
     first[:, 1:] = blocks[:, 1:] != blocks[:, :-1]
     pair_tet, pair_block = np.nonzero(first)[0], blocks[first]
@@ -122,41 +125,61 @@ def stiffness_apply_plain(grads, vols, tets, x, lam, mu, plan: IncidencePlan, fr
     return y if free is None else y * free + x * (1.0 - free)
 
 
-def check_stiffness_apply_inputs(grads, vols, tets, x, plan: IncidencePlan, free) -> None:
-    """Raise unless kernel D takes these inputs as they are: grads (T,4,3),
-    vols (T,), x (N,3) and free (N,3) or None of one float dtype (f32 or
-    f64), tets (T,4) int32 and the plan of tets.reshape(-1) over N nodes, all
-    contiguous on one device, grads, tets and the plan 16-byte aligned, 4T and 3N below
-    2^31 (the kernel indexes in 32 bits), and none of them wanting a gradient
-    (the kernel has no backward). The plan's values are trusted."""
-    floats = [t for t in (grads, vols, x, free) if t is not None]
+def check_incidence_inputs(name: str, geo: dict, tets, x, plan: IncidencePlan, free,
+                           aligned: dict | None = None) -> None:
+    """Raise unless kernel `name` (a walk over an incidence plan: D, N)
+    takes these inputs as they are: the per-tet geometry `geo` ({label:
+    (tensor, its shape)}), x (N,3) and free (N,3) or None of one float dtype
+    (f32 or f64), tets (T,k) int32 and its IncidencePlan over N nodes, all
+    contiguous on one device, the tensors of `aligned` ({label: tensor})
+    16-byte aligned, kT and 3N below 2^31 (the kernel indexes in 32 bits),
+    and none of them wanting a gradient (the kernel has no backward). The
+    plan's values are trusted."""
+    floats = [t for t, _ in geo.values()] + [t for t in (x, free) if t is not None]
     if x.dtype not in (torch.float32, torch.float64) or any(t.dtype != x.dtype for t in floats):
-        raise TypeError(f"kernel D takes one float dtype (f32/f64), got "
+        raise TypeError(f"kernel {name} takes one float dtype (f32/f64), got "
                         f"{[str(t.dtype) for t in floats]}")
     if tets.dtype != torch.int32:
-        raise TypeError(f"kernel D takes int32 tets, got {tets.dtype}")
+        raise TypeError(f"kernel {name} takes int32 tets, got {tets.dtype}")
+    if not isinstance(plan, IncidencePlan):
+        raise TypeError(f"kernel {name} walks an IncidencePlan (build_incidence), not "
+                        f"{type(plan).__name__}")
     T = tets.shape[0]
     N = x.shape[0] if x.dim() == 2 else -1
-    if (grads.shape != (T, 4, 3) or vols.shape != (T,) or tets.shape != (T, 4)
+    if (any(t.shape != shape for t, shape in geo.values()) or tets.dim() != 2
             or x.shape != (N, 3) or (free is not None and free.shape != (N, 3))):
-        raise ValueError(f"kernel D: bad shapes grads {tuple(grads.shape)} vols "
-                         f"{tuple(vols.shape)} tets {tuple(tets.shape)} x {tuple(x.shape)} free "
-                         f"{None if free is None else tuple(free.shape)}")
-    if plan.num_segments != N or plan.order.shape[0] != 4 * T:
-        raise ValueError(f"kernel D: a plan of {plan.order.shape[0]} rows over "
-                         f"{plan.num_segments} nodes against {T} tets and {N} nodes")
+        raise ValueError(f"kernel {name}: bad shapes "
+                         + " ".join(f"{k} {tuple(t.shape)}" for k, (t, _) in geo.items())
+                         + f" tets {tuple(tets.shape)} x {tuple(x.shape)} free "
+                           f"{None if free is None else tuple(free.shape)}")
+    if plan.num_segments != N or plan.order.shape[0] != tets.numel():
+        raise ValueError(f"kernel {name}: a plan of {plan.order.shape[0]} rows over "
+                         f"{plan.num_segments} nodes against {tuple(tets.shape)} tets and {N} "
+                         f"nodes")
     tensors = [*floats, tets, plan.pos, plan.bnode, plan.bt_start, plan.btet, plan.starts]
     if any(t.device != x.device for t in tensors):
-        raise ValueError("kernel D: inputs and plan lie on different devices")
+        raise ValueError(f"kernel {name}: inputs and plan lie on different devices")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("kernel D takes contiguous grads, vols, tets, x and free")
-    if grads.data_ptr() % 16 or tets.data_ptr() % 16 or plan.pos.data_ptr() % 16:
-        raise ValueError("kernel D loads grads, tets and pos 16 bytes at a time: not aligned")
-    if 4 * T >= 2**31 or 3 * N >= 2**31:
-        raise ValueError("kernel D indexes in 32 bits: the arrays are too large")
+        raise ValueError(f"kernel {name} takes contiguous {', '.join(geo)}, tets, x and free")
+    if aligned and any(t.data_ptr() % 16 for t in aligned.values()):
+        raise ValueError(f"kernel {name} loads {', '.join(aligned)} 16 bytes at a time: not "
+                         f"aligned")
+    if tets.numel() >= 2**31 or 3 * N >= 2**31:
+        raise ValueError(f"kernel {name} indexes in 32 bits: the arrays are too large")
     if any(wants_grad(t) for t in floats):
-        raise ValueError("kernel D has no backward: a CUDA input requires_grad (the plain "
-                         "version on the CPU differentiates)")
+        raise ValueError(f"kernel {name} has no backward: a CUDA input requires_grad (the plain "
+                         f"version on the CPU differentiates)")
+
+
+def check_stiffness_apply_inputs(grads, vols, tets, x, plan: IncidencePlan, free) -> None:
+    """Raise unless kernel D takes these inputs as they are
+    (check_incidence_inputs): grads (T,4,3), vols (T,), tets (T,4); grads,
+    tets and the plan's pos 16-byte aligned."""
+    T = tets.shape[0]
+    if tets.shape[1:] != (4,):
+        raise ValueError(f"kernel D takes (T,4) tets, got {tuple(tets.shape)}")
+    check_incidence_inputs("D", {"grads": (grads, (T, 4, 3)), "vols": (vols, (T,))}, tets, x,
+                           plan, free, {"grads": grads, "tets": tets, "pos": plan.pos})
 
 
 def stiffness_apply(grads, vols, tets, x, lam, mu, plan: IncidencePlan, free=None) -> torch.Tensor:

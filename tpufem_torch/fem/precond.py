@@ -142,19 +142,31 @@ def build_line_plan_arrays(
     )
 
 
+def pair_blocks(plan: LinePrecondPlan) -> np.ndarray:
+    """(P,) the (station, slot_a, slot_b) block of each same-station pair,
+    station*K*K + slot_a*K + slot_b."""
+    D, K = plan.D, plan.K
+    st, rem = np.divmod(plan.pair_seg, D * D)
+    return (st * K + rem // (3 * D)) * K + (rem % D) // 3
+
+
+def station_device_arrays(plan: LinePrecondPlan, device="cpu") -> dict:
+    """The plan's pair and station index tensors on `device` (int64), its
+    slot_valid, and its sizes S and K."""
+    out = {k: torch.as_tensor(np.asarray(getattr(plan, k)).astype(np.int64), device=device)
+           for k in ("pair_t", "pair_a", "pair_b", "station_nodes", "node_station", "node_slot")}
+    out["slot_valid"] = torch.as_tensor(plan.slot_valid, device=device)
+    out["S"], out["K"] = plan.num_stations, plan.K
+    return out
+
+
 def plan_device_arrays(plan: LinePrecondPlan, device="cpu") -> dict:
     """The plan as device index tensors with its sizes S and K, plus the CSR
     plan that sums each
     same-station pair's 3x3 block into its (station, slot_a, slot_b) block:
     tpufem summed the 9 entries one by one into the flat (S*D*D,) matrix."""
-    D, K = plan.D, plan.K
-    st, rem = np.divmod(plan.pair_seg, D * D)
-    blk = (st * K + rem // (3 * D)) * K + (rem % D) // 3  # station*K*K + slot_a*K + slot_b
-    out = {k: torch.as_tensor(np.asarray(getattr(plan, k)).astype(np.int64), device=device)
-           for k in ("pair_t", "pair_a", "pair_b", "station_nodes", "node_station", "node_slot")}
-    out["slot_valid"] = torch.as_tensor(plan.slot_valid, device=device)
-    out["blk_plan"] = csr_plan(blk, plan.num_stations * K * K, device)
-    out["S"], out["K"] = plan.num_stations, K
+    out = station_device_arrays(plan, device)
+    out["blk_plan"] = csr_plan(pair_blocks(plan), plan.num_stations * plan.K * plan.K, device)
     return out
 
 
@@ -184,7 +196,14 @@ def line_blocks_from_pairs(kab, plan: dict, free_mask):
     D = 3 * K
     blk = csr_segment_sum(kab.reshape(-1, 9), plan["blk_plan"])  # (S*K*K, 9)
     B = blk.reshape(S, K, K, 3, 3).permute(0, 1, 3, 2, 4).reshape(S, D, D)
+    return mask_and_invert(B, plan, free_mask)
 
+
+def mask_and_invert(B, plan: dict, free_mask):
+    """The inverses (S, D, D) of the station blocks B after the rows and
+    columns of constrained dofs and of empty slots are replaced by identity
+    (`plan`'s station_nodes and slot_valid), so that every block is SPD."""
+    S, D = B.shape[0], B.shape[1]
     # dof validity: slot present AND free
     free3 = free_mask.reshape(-1, 3)
     fm = free3[plan["station_nodes"]] * plan["slot_valid"][:, :, None].to(free3.dtype)

@@ -266,16 +266,12 @@ class StencilMG:
         delta = 0.5 * (lmax - lmin)
         sigma = theta / delta
         rho = 1.0 / sigma
-
-        def bc(v):  # (B,) over (3,B,NI,NK,NJ)
-            return v[None, :, None, None, None]
-
-        d = M(r0) / bc(theta)
+        d = M(r0) / _lanes(theta, r0)
         x = d
         for _ in range(degree - 1):
             r = r0 - A(x)
             rho_new = 1.0 / (2.0 * sigma - rho)
-            d = bc(rho_new * rho) * d + bc(2.0 * rho_new / delta) * M(r)
+            d = _lanes(rho_new * rho, d) * d + _lanes(2.0 * rho_new / delta, d) * M(r)
             x = x + d
             rho = rho_new
         return x
@@ -349,8 +345,16 @@ class StencilMG:
 # -------------------------------------------------------------- batched CG
 
 
+def _lanes(v, x):
+    """Per-lane values `v` broadcast over `x`: a (B,) v over the lane axis 1
+    of a (3, B, NI, NK, NJ) grid array, a 0-d v (one lane: the gather
+    engine's (N, 3) arrays) over the whole of x."""
+    return v if v.ndim == 0 else v.reshape((1, -1) + (1,) * (x.ndim - 2))
+
+
 def _cg_grid_init(A, M, dot, bg, x0):
-    """Initial Krylov state (x, r, p, z, rz, bn) for batched grid PCG."""
+    """Initial Krylov state (x, r, p, z, rz, bn) for batched grid PCG (or
+    single-lane PCG, where `dot` returns a 0-d value)."""
     r = bg - A(x0)
     z = M(r)
     rz = dot(r, z)
@@ -364,8 +368,8 @@ _CHECK_EVERY = 8  # CG steps between host convergence checks (each is a sync)
 
 def _cg_grid_run(A, M, dot, cg, tol, maxiter):
     """Up to `maxiter` PCG iterations from Krylov state `cg`, lanes masked
-    per case over the trailing batch axis; returns (state', iters, rel,
-    converged).
+    per case over the lane axis (the lanes are the shape of `dot`'s result,
+    see _lanes); returns (state', iters, rel, converged).
 
     tpufem runs this as a lax.while_loop that tests `any lane not done` before
     every step. Here the host looks only every _CHECK_EVERY steps; the
@@ -387,13 +391,13 @@ def _cg_grid_run(A, M, dot, cg, tol, maxiter):
         Ap = A(p)
         denom = dot(p, Ap)
         alpha = torch.where(done | (denom == 0), zero, rz / torch.where(denom == 0, one, denom))
-        bca = alpha[None, :, None, None, None]
+        bca = _lanes(alpha, x)
         x = x + bca * p
         r = r - bca * Ap
         z = M(r)
         rz_new = dot(r, z)
         beta = torch.where(done | (rz == 0), zero, rz_new / torch.where(rz == 0, one, rz))
-        p = z + beta[None, :, None, None, None] * p
+        p = z + _lanes(beta, p) * p
         rz = torch.where(done, rz, rz_new)
     rel = torch.sqrt(dot(r, r)) / bn
     return (x, r, p, z, rz, bn), int(count.max()), rel, rel <= tol
@@ -404,7 +408,8 @@ def _correction_rounds(A, M, dot, resid, x, total, tol, maxiter, rounds, stop_ra
     """Classical iterative refinement judged on a TRUE residual; returns
     (x, total, rel).
 
-    Each round judges x by `resid(x)` -> (r, per-lane rel). It stops when
+    Each round judges x by `resid(x)` -> (r, per-lane rel; a 0-d rel for one
+    lane over the whole of r). It stops when
     every lane is within tol, maxiter CG steps are spent, the worst lane
     contracted by less than `stop_ratio` since the last round (the
     correction operator's floor) or `rounds` corrections are made. Else the
@@ -422,8 +427,9 @@ def _correction_rounds(A, M, dot, resid, x, total, tol, maxiter, rounds, stop_ra
                 or rnd == rounds):
             break
         prev = relmax
-        rn = torch.sqrt((r * r).sum(dim=(0, 2, 3, 4)))
-        safe = torch.where(rn > 0, rn, torch.ones_like(rn))[None, :, None, None, None]
+        sq = r * r
+        rn = torch.sqrt(sq.sum() if rel.ndim == 0 else sq.sum(dim=(0, *range(2, r.ndim))))
+        safe = _lanes(torch.where(rn > 0, rn, torch.ones_like(rn)), r)
         rb = (r / safe).to(dtype or r.dtype)
         ccg = _cg_grid_init(A, M, dot, rb, torch.zeros_like(rb))
         ctol = inner_tol(relmax) if callable(inner_tol) else inner_tol

@@ -14,8 +14,13 @@ tensor, a fixed summation order): float atomics would change the f64 loads'
 last bits, and with them iteration counts, from run to run. The plan of a
 connectivity is built on the host once and may be passed in.
 
-tpufem's gather-engine pieces (``tet10_diagonal``, ``tet10_line_blocks``,
-``solve_tet10_case``) are not ported yet (ROADMAP Queue 1).
+The operator ``tet10_force`` (with the Dirichlet mask, the gather engine's
+``A``) is kernel N (``csrc/tet10_force.cu``) on a CUDA tensor, one launch over
+the connectivity's incidence plan (``force_plan``), and
+``tet10_force_plain`` on a CPU tensor. The gather engine's pieces follow:
+``tet10_diagonal``, ``tet10_line_blocks`` (one fixed-order sum over the
+same-station node pairs, ``line_plan10``) and the two-level host-facing
+solve ``solve_tet10_case``; its p-multigrid is ``fem.tet10_mg``.
 """
 
 from __future__ import annotations
@@ -25,8 +30,21 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from tpufem_torch.fem.assembly import IncidencePlan, build_incidence, check_incidence_inputs
+from tpufem_torch.fem.precond import (
+    build_line_plan_arrays,
+    mask_and_invert,
+    pair_blocks,
+    station_device_arrays,
+)
 from tpufem_torch.mesh_types import Mesh
-from tpufem_torch.ops.csr_segment_sum import CsrPlan, csr_plan, csr_segment_sum
+from tpufem_torch.ops.csr_segment_sum import (
+    CsrPlan,
+    csr_plan,
+    csr_segment_sum,
+    csr_segment_sum_plain,
+)
+from tpufem_torch.ops.kernels import check, load_kernels
 
 _EDGES = np.array([(0, 1), (1, 2), (2, 0), (0, 3), (1, 3), (2, 3)], dtype=np.int64)
 
@@ -208,34 +226,163 @@ def _tet10_fe(Jinv, vols, conn, u_nodes, lam, mu):
 
 def connectivity_plan(tet10, num_nodes: int, device) -> CsrPlan:
     """The CSR plan of the (T,10) connectivity's node ids (host, once per
-    topology): the segment sums of tet10_force and tet10_stress_nodal."""
-    return csr_plan(np.asarray(tet10.cpu() if isinstance(tet10, torch.Tensor) else tet10),
-                    num_nodes, device)
+    topology): the segment sums of tet10_stress_nodal."""
+    return csr_plan(_host(tet10), num_nodes, device)
 
 
-def tet10_force(Jinv, vols, tet10, u_nodes, lam, mu, num_nodes, elem_chunk=None, plan=None):
-    """y = K u (N,3) for tet10, quadrature-point tensor form.
+def force_plan(tet10, num_nodes: int, device) -> IncidencePlan:
+    """The incidence plan of the (T,10) connectivity (host, once per
+    topology): kernel N's blocks, and the CSR plan of the same node ids (its
+    first fields), so it also serves the segment sums of tet10_diagonal and
+    tet10_stress_nodal."""
+    return build_incidence(_host(tet10), num_nodes, device)
 
-    `elem_chunk` is accepted and ignored: tpufem scanned element blocks to
-    bound its (T,Q,10,3,3) temporaries in a TPU's HBM; the einsums here keep
-    (T,Q,3,3) at most, which an H100's 80 GB holds at the flagship mesh."""
+
+def _host(a) -> np.ndarray:
+    return np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+
+
+def tet10_force_plain(Jinv, vols, tet10, x, lam, mu, plan, free=None):
+    """Plain PyTorch version of kernel N: y (N,3) = K(x * free) * free +
+    x * (1 - free), or K x where `free` is None; the element forces of
+    _tet10_fe added per node in the plan's order from zero (any plan of
+    tet10.reshape(-1): a CsrPlan or an IncidencePlan)."""
+    u = x if free is None else x * free
+    y = csr_segment_sum_plain(_tet10_fe(Jinv, vols, tet10, u, lam, mu).reshape(-1, 3), plan)
+    return y if free is None else y * free + x * (1.0 - free)
+
+
+def check_tet10_force_inputs(Jinv, vols, tet10, x, plan: IncidencePlan, free) -> None:
+    """Raise unless kernel N takes these inputs as they are
+    (assembly.check_incidence_inputs): Jinv (T,3,3), vols (T,), tet10
+    (T,10) and its force_plan."""
+    T = tet10.shape[0]
+    if tet10.shape[1:] != (10,):
+        raise ValueError(f"kernel N takes (T,10) tets, got {tuple(tet10.shape)}")
+    check_incidence_inputs("N", {"Jinv": (Jinv, (T, 3, 3)), "vols": (vols, (T,))}, tet10, x,
+                           plan, free)
+
+
+def tet10_force(Jinv, vols, tet10, u_nodes, lam, mu, num_nodes, elem_chunk=None, plan=None,
+                free=None):
+    """y = K u (N,3) for tet10, quadrature-point tensor form; with `free`
+    (N,3), the masked operator y = K(u * free) * free + u * (1 - free).
+
+    A CPU tensor takes tet10_force_plain. A CUDA tensor launches kernel N
+    (csrc/tet10_force.cu), one launch for the whole function, over `plan`
+    (force_plan, built here when not given), or raises
+    (check_tet10_force_inputs). `elem_chunk` is accepted and ignored: tpufem
+    scanned element blocks to bound its temporaries in a TPU's HBM; kernel N
+    keeps the element forces in shared memory."""
     del elem_chunk
-    fe = _tet10_fe(Jinv, vols, tet10, u_nodes, lam, mu)
-    plan = plan or connectivity_plan(tet10, num_nodes, u_nodes.device)
-    return csr_segment_sum(fe.reshape(-1, 3), plan)
+    plan = plan or force_plan(tet10, num_nodes, u_nodes.device)
+    if not u_nodes.is_cuda:
+        return tet10_force_plain(Jinv, vols, tet10, u_nodes, lam, mu, plan, free)
+    check_tet10_force_inputs(Jinv, vols, tet10, u_nodes, plan, free)
+    y = torch.empty_like(u_nodes)
+    lib = load_kernels()
+    fn = (lib.tpufem_tet10_force_f64 if u_nodes.dtype == torch.float64
+          else lib.tpufem_tet10_force_f32)
+    status = fn(Jinv.data_ptr(), vols.data_ptr(), tet10.data_ptr(), plan.pos.data_ptr(),
+                plan.btet.data_ptr(), plan.bt_start.data_ptr(), plan.bnode.data_ptr(),
+                plan.starts.data_ptr(), u_nodes.data_ptr(),
+                None if free is None else free.data_ptr(), y.data_ptr(),
+                plan.bnode.shape[0] - 1, plan.slots, float(lam), float(mu),
+                torch.cuda.current_stream(u_nodes.device).cuda_stream)
+    check(status, "tet10_force")
+    tet10_force.launches += 1
+    return y
+
+
+tet10_force.launches = 0
 
 
 def tet10_operator(Jinv, vols, tet10, lam, mu, num_nodes, free_mask, plan=None):
+    """A(x) for the BC-reduced SPD system in flat (N*3,) layout: one
+    tet10_force call with the Dirichlet mask (kernel N on the card)."""
     free3 = free_mask.reshape(-1, 3)
-    plan = plan or connectivity_plan(tet10, num_nodes, Jinv.device)
+    plan = plan or force_plan(tet10, num_nodes, free3.device)
 
     def apply(x_flat):
-        u = x_flat.reshape(-1, 3) * free3
-        y = tet10_force(Jinv, vols, tet10, u, lam, mu, num_nodes, plan=plan)
-        y = y * free3 + x_flat.reshape(-1, 3) * (1.0 - free3)
-        return y.reshape(-1)
+        return tet10_force(Jinv, vols, tet10, x_flat.reshape(-1, 3), lam, mu, num_nodes,
+                           plan=plan, free=free3).reshape(-1)
 
     return apply
+
+
+def tet10_diagonal(Jinv, vols, tet10, lam, mu, num_nodes, free_mask, plan=None):
+    """diag(K) (N*3,) with unit entries on constrained dofs (Jacobi): per
+    element and node, sum_q w (lam + mu) g_qai^2 + mu |g_qa|^2, summed per
+    node by kernel E over `plan` (connectivity_plan or force_plan)."""
+    g2 = _quad_grads(Jinv) ** 2  # (T,Q,10,3)
+    gg = g2.sum(dim=3, keepdim=True)
+    w = (GAUSS_WEIGHT * vols)[:, None, None, None]
+    d = (w * ((lam + mu) * g2 + mu * gg)).sum(dim=1)  # (T,10,3)
+    plan = plan or connectivity_plan(tet10, num_nodes, Jinv.device)
+    diag = csr_segment_sum(d.reshape(-1, 3), plan).reshape(-1)
+    return torch.where((free_mask > 0) & (diag > 0), diag, torch.ones_like(diag))
+
+
+def line_plan10(tet10, station_id, slot, S: int, K: int, device) -> dict:
+    """The same-station pair plan of tet10_line_blocks for the (T,10)
+    connectivity whose nodes sit at (station_id, slot) of S stations of K
+    slots (host, once per topology): precond.build_line_plan_arrays's pairs
+    (grouped by (a, b) in a-major order, the tets ascending; pair_offsets
+    (101,) on the host) and station arrays on `device`, and blk_plan, the CSR
+    plan that sums each pair's 3x3 block into its (station, slot_a, slot_b)
+    block. Only the blocks some pair touches are segments (`used`, their
+    station*K*K + slot_a*K + slot_b): at the flagship 2.6M of the 14.3M
+    (49,601 stations x 17 x 17), whose empty segments would swell kernel E's
+    launch table with their listings."""
+    st = _host(station_id)
+    lp = build_line_plan_arrays(_host(tet10), st, _host(slot), S, K, len(st))
+    counts = np.bincount(lp.pair_a.astype(np.int64) * 10 + lp.pair_b, minlength=100)
+    used, seg = np.unique(pair_blocks(lp), return_inverse=True)
+    return {**station_device_arrays(lp, device),
+            "pair_offsets": np.concatenate([[0], np.cumsum(counts)]),
+            "blk_plan": csr_plan(seg, len(used), device),
+            "used": torch.as_tensor(used, device=device)}
+
+
+def tet10_line_blocks_raw(Jinv, vols, lam, mu, plan: dict) -> torch.Tensor:
+    """The raw per-station thickness-line blocks (S, D, D), D = 3K, of
+    tpufem's tet10_line_blocks before masking and inversion: for each of the
+    100 node pairs (a, b) of a tet on one station, sum_q w [lam ga gb^T + mu
+    gb ga^T + mu (ga . gb) I] with w = V/4, the pairs' 3x3 blocks summed by
+    kernel E over plan["blk_plan"] (line_plan10) in one fixed order.
+    tpufem added 100 segment sums of T*9 values into S*D*D slots; the same
+    sum runs here over the same-station rows only."""
+    S, K = plan["S"], plan["K"]
+    D = 3 * K
+    g = _quad_grads(Jinv)  # (T,Q,10,3)
+    w = GAUSS_WEIGHT * vols
+    eye = torch.eye(3, dtype=Jinv.dtype, device=Jinv.device)
+    off = plan["pair_offsets"]
+    kab = torch.empty((int(off[-1]), 3, 3), dtype=Jinv.dtype, device=Jinv.device)
+    for a in range(10):
+        for b in range(10):
+            o0, o1 = int(off[10 * a + b]), int(off[10 * a + b + 1])
+            t = plan["pair_t"][o0:o1]
+            ga, gb = g[t, :, a], g[t, :, b]  # (P,Q,3)
+            outer = torch.einsum("pqi,pqj->pij", ga, gb)
+            wv = w[t]
+            kab[o0:o1] = (wv[:, None, None] * (lam * outer + mu * outer.transpose(1, 2))
+                          + (wv * mu * (ga * gb).sum(dim=(1, 2)))[:, None, None] * eye)
+    blk = torch.zeros((S * K * K, 9), dtype=Jinv.dtype, device=Jinv.device)
+    blk[plan["used"]] = csr_segment_sum(kab.reshape(-1, 9), plan["blk_plan"])
+    return blk.reshape(S, K, K, 3, 3).permute(0, 1, 3, 2, 4).reshape(S, D, D)
+
+
+def tet10_line_blocks(Jinv, vols, tet10, station_id, slot, lam, mu, free_mask, S: int, K: int,
+                      plan: dict | None = None):
+    """Inverted per-station line blocks (S, D, D) for tet10: the raw blocks
+    (tet10_line_blocks_raw over `plan`, line_plan10 of the mesh), the rows
+    and columns of constrained dofs and of empty slots replaced by identity,
+    then inverted (precond.spd_block_inverse). `tet10`, `station_id`,
+    `slot`, S and K are tpufem's arguments; where `plan` is given they must
+    be its mesh's."""
+    plan = plan or line_plan10(tet10, station_id, slot, S, K, Jinv.device)
+    return mask_and_invert(tet10_line_blocks_raw(Jinv, vols, lam, mu, plan), plan, free_mask)
 
 
 def t6_plan(t6_faces, num_nodes: int, device) -> CsrPlan:
@@ -310,3 +457,82 @@ def tet10_stress_nodal(Jinv, vols, tet10, u_nodes, lam, mu, num_nodes, plan=None
     num, den = stress_nodal_terms(Jinv, vols, tet10, u_nodes, lam, mu)
     plan = plan or connectivity_plan(tet10, num_nodes, u_nodes.device)
     return csr_segment_sum(num, plan) / torch.clamp(csr_segment_sum(den, plan), min=1e-300)
+
+
+def solve_tet10_case(
+    t10: Tet10Mesh,
+    nroot_nodes10: np.ndarray,
+    upper_t6: np.ndarray,
+    pressure: float,
+    material=None,
+    tol: float = 1e-6,
+    maxiter: int = 20000,
+    dtype=torch.float32,
+    chunk_iters: int = 0,
+    two_level: bool = True,
+    nj2: int | None = None,
+    device="cuda",
+):
+    """Full tet10 linear-static solve (host-facing), on `device` (the card
+    unless the caller asks for the CPU).
+
+    Returns (u (N,3), vm (N,), iters, rel_residual, converged) over the tet10
+    node set, numpy on the host. Uses the thickness-line preconditioner (+
+    RBM two-level coarse correction when two_level and the doubled-grid
+    stations are available; nj2 = span station count of the doubled grid,
+    i.e. 2*(n_span+1)-1), Jacobi otherwise. The operator is kernel N on the
+    card; every segment sum is kernel E. chunk_iters is accepted for
+    tpufem's signature: it bounded a TPU dispatch, and the port runs one CG
+    (fem.solver.pcg)."""
+    from tpufem_torch.device import resolve_device
+    from tpufem_torch.fem.bc import dirichlet_mask
+    from tpufem_torch.fem.material import Material, lame_params
+    from tpufem_torch.fem.precond import (
+        build_rbm_groups,
+        build_rbm_plan,
+        make_line_preconditioner,
+        make_rbm_two_level,
+        rbm_coarse_inverse,
+    )
+    from tpufem_torch.fem.solver import pcg
+    from tpufem_torch.fem.vonmises import von_mises
+
+    del chunk_iters
+    device = resolve_device(device)
+    lam, mu = lame_params(material or Material())
+    # the `dtype` system sees the Lame constants rounded to it, as tpufem's
+    lam, mu = (float(torch.tensor(v, dtype=dtype)) for v in (lam, mu))
+    nodes10 = torch.as_tensor(t10.nodes10(t10.mesh4.nodes), dtype=dtype, device=device)
+    conn = torch.as_tensor(t10.tet10, dtype=torch.int32, device=device)
+    N = t10.num_nodes
+    plan = force_plan(t10.tet10, N, device)
+    free = dirichlet_mask(N, nroot_nodes10, dtype=dtype, device=device)
+    Jinv, vols = tet10_setup(nodes10, conn)
+    f = pressure_loads_t6(nodes10, upper_t6, pressure, N)
+    b = f.reshape(-1) * free
+    A = tet10_operator(Jinv, vols, conn, lam, mu, N, free, plan=plan)
+
+    if t10.station_id is not None:
+        S, K = t10.num_stations, t10.slots_per_station
+        lplan = line_plan10(t10.tet10, t10.station_id, t10.slot, S, K, device)
+        Binv = tet10_line_blocks(Jinv, vols, conn, t10.station_id, t10.slot, lam, mu, free,
+                                 S=S, K=K, plan=lplan)
+        M = make_line_preconditioner(lplan, Binv)
+        if two_level and nj2 is not None:
+            ni2 = t10.num_stations // nj2
+            node_group, n_groups = build_rbm_groups(t10.station_id, t10.slot, ni2, nj2,
+                                                    group=(8, 8))
+            rbm = build_rbm_plan(node_group, n_groups, t10.tet10, device)
+            grads_c = _quad_grads(Jinv).mean(dim=1)  # (T,10,3) avg-point grads
+            Ac_inv, dvec = rbm_coarse_inverse(rbm, conn.long(), nodes10, grads_c, vols, lam, mu,
+                                              free)
+            M = make_rbm_two_level(M, Ac_inv, rbm, dvec, free)
+    else:
+        diag = tet10_diagonal(Jinv, vols, conn, lam, mu, N, free, plan=plan)
+        M = None
+
+    res = pcg(A, b, diag=None if M is not None else diag, tol=tol, maxiter=maxiter, M=M)
+    u = (res.x * free).reshape(-1, 3)
+    vm = von_mises(tet10_stress_nodal(Jinv, vols, conn, u, lam, mu, N, plan=plan))
+    return (u.cpu().numpy(), vm.cpu().numpy(), int(res.iters), float(res.rel_residual),
+            bool(res.converged))

@@ -59,6 +59,12 @@ _SIGNATURES = {
                                                ctypes.c_double, _P],
     "tpufem_stiffness_apply_f64": [_P] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_double,
                                                ctypes.c_double, _P],
+    # (Jinv, vols, tets, pos, btet, bt_start, bnode, starts, x, free or null, y, n_blocks,
+    #  slots, lam, mu, stream)
+    "tpufem_tet10_force_f32": [_P] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                                           ctypes.c_double, _P],
+    "tpufem_tet10_force_f64": [_P] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                                           ctypes.c_double, _P],
     # (g, u, sig, B, NI, NK, NJ, weld_te, lam, mu, stream)
     "tpufem_element_stress_f32": [_P, _P, _P] + [ctypes.c_int] * 5 + [ctypes.c_double,
                                                                       ctypes.c_double, _P],

@@ -1,6 +1,6 @@
-"""Kernels L (``fem.tet10_stencil.strain_apply10``) and M (``prolong_p`` /
-``restrict_p``) on one CUDA card, and where the flagship tet10 CG
-iteration's device time goes.
+"""Kernels L (``fem.tet10_stencil.strain_apply10``), M (``prolong_p`` /
+``restrict_p``) and N (``fem.tet10.tet10_force``) on one CUDA card, and
+where the flagship tet10 CG iteration's device time goes.
 
 measure_L(): kernel L against strain_apply10_plain on a seeded displacement
 (1e-3 x a normal field) at a wing's doubled grid, f64 and f32: the error over
@@ -22,6 +22,22 @@ bound; the library time is one torch.sparse.mm of the transfer's CSR matrix
 (transfer_matrices) on the same field laid out as (nodes, 3 B), by event
 time and by device time (every device activity of the call, repeated).
 
+measure_N(): kernel N against tet10_force_plain at N_SHAPES (the flagship,
+32x40x4, a sharp-TE 16x24x4; one wing, a seeded displacement), f64 and f32,
+masked and unmasked: f64 within 1e-12 of the largest plain entry, f32
+against the f64 result no worse than 2x the plain f32 version, the same
+bits twice, one launch and one device activity per call, event / device
+(repeated, flushed) / plain times, the bound (Jinv, vols, the int32
+connectivity, x and free read once, y written once; l_flops_per_tet() per
+tet, each tet counted once), the plan's overlap, and the library time:
+torch.sparse.mm of the masked operator as one CSR matrix, assembled on the
+card from the same geometry (library_matrix; at the flagship ~0.5G
+element-matrix entries, summed in seconds).
+
+gather_iteration_profile(): the same for the gather engine's f32 CG
+(Tet10MGSolver, --engine gather): kernels N, E and B by name, the line
+solves by their per-call time.
+
 iteration_profile(): the flagship CLI's f32 CG (Tet10StencilT at
 DOF1M_TET10, one wing), `iters` iterations after a warm-up: ms per
 iteration (CUDA events), then under torch.profiler the device busy time and
@@ -41,7 +57,8 @@ OUTSIDE the tolerance) and to its own bits on repeat, and its output is
 compared with the port's bit for bit (its largest difference from the
 port's printed, and from the first compared build's). A build whose sources
 predate the tiled entry points (tpufem_strain_apply10_tiled_*,
-tpufem_restrict_p_tiled_*) is called through its own. Each library's ptxas
+tpufem_restrict_p_tiled_*) is called through its own; kernel N is timed in
+the builds that have it. Each library's ptxas
 registers and spills for L and M are printed.
 
 Usage: python -m tpufem_torch.profile_tet10 [--out PATH] [--iters N] [--compare LABEL=DIR ...]
@@ -61,6 +78,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from tpufem_torch.device import HBM_BYTES_PER_S, PEAK_FLOPS
 from tpufem_torch.fem import stencil as st
+from tpufem_torch.fem import tet10 as tt10
 from tpufem_torch.fem import tet10_stencil as ts
 from tpufem_torch.fem.material import Material, lame_params
 from tpufem_torch.fem.tet10 import DNDXI
@@ -88,17 +106,19 @@ SHAPES = {
 }
 SOURCES = {"strain_apply10": "tpufem_torch/csrc/strain_apply10.cu",
            "prolong_p": "tpufem_torch/csrc/p_transfer.cu",
-           "restrict_p": "tpufem_torch/csrc/p_transfer.cu"}
+           "restrict_p": "tpufem_torch/csrc/p_transfer.cu",
+           "tet10_force": "tpufem_torch/csrc/tet10_force.cu"}
 REPLACES = {"strain_apply10": "tpufem/fem/tet10_stencil.py:233",
             "prolong_p": "tpufem/fem/tet10_stencil.py:301",
-            "restrict_p": "tpufem/fem/tet10_stencil.py:316"}
+            "restrict_p": "tpufem/fem/tet10_stencil.py:316",
+            "tet10_force": "tpufem/fem/tet10.py:167"}
 DTYPE_NAMES = {torch.float64: "f64", torch.float32: "f32"}
 # kernel M against its plain version, of the largest entry: the weld rows'
 # column sums run in another order
 M_TOL = {torch.float64: 1e-14, torch.float32: 1e-6}
 KERNEL_NAMES = {"strain_apply10": "strain_apply10_kernel", "prolong_p": "prolong_p_kernel",
-                "restrict_p": "restrict_p_kernel"}
-LETTERS = {"strain_apply10": "L", "prolong_p": "M", "restrict_p": "M"}
+                "restrict_p": "restrict_p_kernel", "tet10_force": "tet10_force_kernel"}
+LETTERS = {"strain_apply10": "L", "prolong_p": "M", "restrict_p": "M", "tet10_force": "N"}
 DESIGNS = {
     "strain_apply10": "cell-owning tiles of TI x TJ cells at full thickness (l_plan), two "
                       "threads per cell (tets 0-2, 3-5) with DNDXI folded at compile time, "
@@ -111,6 +131,18 @@ DESIGNS = {
                   "component (m_plan): the doubled rows staged in shared memory with 16-byte "
                   "loads, a thread per node, weld columns summed in k order after a barrier: "
                   "no atomics",
+    "tet10_force": "kernel D's walk (tet-centric, a block per contiguous node range of the "
+                   "incidence plan, force_plan) with kernel L's tet10 body (DNDXI folded at "
+                   "compile time, nodes gathered in groups of 3/3/2/2), node forces into shared "
+                   "memory at their CSR rows, a thread per node component adds them in the "
+                   "plan's order: one launch per masked apply, no atomics",
+}
+# the shapes kernel N runs at in chip_smoke.py's phase 9: the flagship, the
+# modal CLI's grid and a sharp-TE one (one wing each)
+N_SHAPES = {
+    "DOF1M_TET10": (DOF1M_TET10, FLAGSHIP_P4),
+    "32x40x4": (MODAL_RES, MODAL_P4),
+    "16x24x4 sharp TE": (SHARP_RES, FLAGSHIP_P4),
 }
 
 
@@ -147,7 +179,7 @@ def check_and_time(name, label, fn, plain, tol, nbytes_, flops, dtype, timed=Tru
     same bits twice, within tol of the plain result's largest entry) and,
     with `timed`, its times and bound."""
     counter = {"strain_apply10": ts.strain_apply10, "prolong_p": ts.prolong_p,
-               "restrict_p": ts.restrict_p}[name]
+               "restrict_p": ts.restrict_p, "tet10_force": tt10.tet10_force}[name]
     before = counter.launches
     y = fn()
     torch.cuda.synchronize()
@@ -264,10 +296,130 @@ def measure_M(label, res, B, device, timed=True) -> dict:
     return out
 
 
+def n_inputs(res: WingMeshResolution, p4, device, seed=2):
+    """(Jinv64, vols64, conn, x64, free64, plan, t10) of the wing p4 at res:
+    the f64 geometry, a seeded displacement (1e-3 x a normal field), the root
+    mask and the connectivity's incidence plan."""
+    t10 = tt10.tet10_from_tet4(structured_wing_mesh(*p4, res))
+    conn = torch.as_tensor(t10.tet10, dtype=torch.int32, device=device)
+    n10 = torch.as_tensor(t10.nodes10(t10.mesh4.nodes), dtype=torch.float64, device=device)
+    Jinv, vols = tt10.tet10_setup(n10, conn)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((t10.num_nodes, 3), generator=gen, device=device, dtype=torch.float64) * 1e-3
+    free = torch.ones_like(x)
+    free[torch.as_tensor(tt10.tet10_root_nodes(t10), device=device).long()] = 0.0
+    return Jinv, vols, conn, x, free, tt10.force_plan(t10.tet10, t10.num_nodes, device), t10
+
+
+def library_matrix(Jinv, vols, conn, free, lam: float, mu: float,
+                   chunk: int = 1 << 16) -> torch.Tensor:
+    """The masked operator A = F K F + (I - F) (F = diag(free)) as one f64
+    CSR matrix on the inputs' device, so that torch.sparse.mm(A, x.reshape(-1,
+    1)) computes kernel N's masked function. Assembled from kernel N's own
+    inputs (Jinv (T,3,3), vols, conn (T,10), free (N,3)): per tet the 10 x 10
+    node blocks of its stiffness, K_mn[d][e] = sum_q (vol/4) (lam g_md g_ne +
+    mu g_me g_nd + mu (g_m . g_n) delta_de) with g_q = DNDXI[q] Jinv^T, summed
+    per node pair (index_add_), then laid out as scalar CSR rows."""
+    dev, f64 = Jinv.device, torch.float64
+    T, N = conn.shape[0], free.shape[0]
+    c = conn.long()
+    keys = (c[:, :, None] * N + c[:, None, :]).reshape(-1)  # (T*100,) node pairs (m, n)
+    pairs, inv = torch.unique(keys, return_inverse=True)  # sorted: by row node, then column
+    del keys
+    dn = torch.as_tensor(DNDXI, dtype=f64, device=dev)
+    blocks = torch.zeros((pairs.numel(), 3, 3), dtype=f64, device=dev)
+    for t0 in range(0, T, chunk):
+        J = Jinv[t0:t0 + chunk].to(f64)
+        g = torch.einsum("qmj,tdj->tqmd", dn, J)  # (t,4,10,3)
+        S = torch.einsum("t,tqmd,tqne->tmnde", 0.25 * vols[t0:t0 + chunk].to(f64), g, g)
+        tr = S.diagonal(dim1=3, dim2=4).sum(-1)  # (t,10,10): sum_q w g_m . g_n
+        Ke = lam * S + mu * S.transpose(3, 4) + (mu * tr)[..., None, None] * torch.eye(
+            3, dtype=f64, device=dev)
+        blocks.index_add_(0, inv[t0 * 100:(t0 + chunk) * 100], Ke.reshape(-1, 3, 3))
+    del inv
+    bi, bj = pairs // N, pairs % N
+    fr = free.to(f64)
+    blocks *= fr[bi][:, :, None] * fr[bj][:, None, :]
+    diag = bi == bj
+    blocks[diag] += torch.diag_embed(1.0 - fr[bi[diag]])
+    # scalar CSR: row 3i+d holds, for each of node i's column nodes j in order,
+    # the 3 entries (3j+e); the block k of row node i at place p = k - first(i)
+    counts = torch.bincount(bi, minlength=N)
+    first = torch.cumsum(counts, 0) - counts
+    nnz = 9 * pairs.numel()
+    idx = torch.int32 if nnz < 2**31 else torch.int64
+    d3 = torch.arange(3, device=dev)
+    crow = torch.empty(3 * N + 1, dtype=torch.int64, device=dev)
+    crow[:-1] = (9 * first[:, None] + 3 * counts[:, None] * d3).reshape(-1)
+    crow[-1] = nnz
+    k = torch.arange(pairs.numel(), device=dev)
+    at = (9 * first[bi] + 3 * (k - first[bi]))[:, None, None] + \
+        (3 * counts[bi])[:, None, None] * d3[None, :, None] + d3[None, None, :]
+    cols = torch.empty(nnz, dtype=torch.int64, device=dev)
+    cols[at.reshape(-1)] = (3 * bj[:, None, None] + d3[None, None, :]).expand(-1, 3, 3).reshape(-1)
+    vals = torch.empty(nnz, dtype=f64, device=dev)
+    vals[at.reshape(-1)] = blocks.reshape(-1)
+    return torch.sparse_csr_tensor(crow.to(idx), cols.to(idx), vals, (3 * N, 3 * N))
+
+
+def measure_N(label, res, p4, device, timed=True) -> dict:
+    """Kernel N at `res` on the wing p4, f64 and f32, masked (the engine's
+    operator) and unmasked: {"f64 masked": record, ...}. The f64 error is held
+    to 1e-12 of the largest entry of the plain f64 result, the f32 error
+    against that f64 result to 2x the plain f32 version's; each record also
+    holds the plan's overlap and blocks, and with `timed` (masked only)
+    torch.sparse.mm of the assembled matrix (library_matrix) on the same x."""
+    Jinv64, vols64, conn, x64, free64, plan, _ = n_inputs(res, p4, device)
+    T, N = conn.shape[0], x64.shape[0]
+    A64 = library_matrix(Jinv64, vols64, conn, free64, LAM, MU) if timed else None
+    out = {}
+    for masked in (True, False):
+        ref64 = tt10.tet10_force_plain(Jinv64, vols64, conn, x64, LAM, MU, plan,
+                                       free64 if masked else None)
+        for dtype in (torch.float64, torch.float32):
+            J, v, x = Jinv64.to(dtype), vols64.to(dtype), x64.to(dtype)
+            free = free64.to(dtype) if masked else None
+            fn = lambda J=J, v=v, x=x, free=free: tt10.tet10_force(  # noqa: E731
+                J, v, conn, x, LAM, MU, N, plan=plan, free=free)
+            plain = lambda J=J, v=v, x=x, free=free: tt10.tet10_force_plain(  # noqa: E731
+                J, v, conn, x, LAM, MU, plan, free)
+            lib = None
+            if A64 is not None and masked:
+                A = torch.sparse_csr_tensor(A64.crow_indices(), A64.col_indices(),
+                                            A64.values().to(dtype), A64.shape)
+                xf = x.reshape(-1, 1)
+                y_lib = torch.sparse.mm(A, xf).reshape(N, 3)
+                if not ((y_lib.double() - ref64).abs().max().item()
+                        <= (1e-10 if dtype == torch.float64 else 1e-4) * ref64.abs().max().item()):
+                    raise RuntimeError(f"{label}: the assembled matrix is not kernel N's map")
+                lib = lambda A=A, xf=xf: torch.sparse.mm(A, xf)  # noqa: E731
+            moved = nbytes(J, v, conn, x) + (nbytes(free) if masked else 0) + nbytes(x)
+            d = f"{DTYPE_NAMES[dtype]} {'masked' if masked else 'unmasked'}"
+            rec = check_and_time("tet10_force", label, fn, plain,
+                                 1e-12 if dtype == torch.float64 else 1e-5, moved,
+                                 l_flops_per_tet() * T, dtype, timed, library=lib)
+            if dtype == torch.float32:
+                err = (fn().double() - ref64).abs().max().item()
+                err_plain = (plain().double() - ref64).abs().max().item()
+                if not err <= 2 * err_plain:
+                    raise RuntimeError(f"tet10_force {label} {d}: f32 error {err:.3e} against "
+                                       f"f64, more than 2x the plain version's {err_plain:.3e}")
+                rec.update(err_vs_f64=err, plain_err_vs_f64=err_plain)
+            out[d] = {**rec, "dtype": d, "grid": list(res.key), "B": 1, "T": T, "N": N,
+                      "overlap": plan.overlap, "blocks": plan.bnode.numel() - 1}
+    return out
+
+
 def line(rec) -> str:
     s = (f"[kernel {LETTERS[rec['kernel']]}] {rec['kernel']} {rec['case']} {rec['grid']} "
          f"B={rec['B']} {rec['dtype']}: max|err| {rec['max_abs_err']:.3e} (rel "
          f"{rec['rel_err']:.2e}), bitwise repeatable")
+    if "overlap" in rec:
+        s += (f"; T={rec['T']} N={rec['N']}, {rec['blocks']} blocks, each tet evaluated "
+              f"{rec['overlap']:.3f} times")
+    if "err_vs_f64" in rec:
+        s += (f"; f32 err vs f64 {rec['err_vs_f64']:.3e} (plain f32 "
+              f"{rec['plain_err_vs_f64']:.3e}, bar 2x)")
     if "ms" in rec:
         lib = (f"; library (torch.sparse.mm) {rec['library_ms']:.4f} ms, device "
                f"{rec['library_device_us']:.2f} us (every activity, repeated)"
@@ -415,6 +567,40 @@ def measure_library(label, lib_label, lib, res, p4s, device, firsts: dict) -> li
     return recs
 
 
+def measure_library_N(label, lib_label, lib, res, p4, device, firsts: dict) -> list:
+    """Kernel N of library `lib` (a build with the tpufem_tet10_force_* entry
+    points) at one N_SHAPES entry, masked, f64 and f32 (library_record)."""
+    Jinv64, vols64, conn, x64, free64, plan, _ = n_inputs(res, p4, device)
+    T, N = conn.shape[0], x64.shape[0]
+    recs = []
+    for dtype in (torch.float64, torch.float32):
+        J, v, x, free = (t.to(dtype) for t in (Jinv64, vols64, x64, free64))
+        fn = getattr(lib, f"tpufem_tet10_force_{DTYPE_NAMES[dtype]}")
+        y = torch.empty_like(x)
+        ptrs = (J, v, conn, plan.pos, plan.btet, plan.bt_start, plan.bnode, plan.starts, x, free,
+                y)
+
+        def call(fn=fn, ptrs=ptrs, y=y):
+            check(fn(*(t.data_ptr() for t in ptrs), plan.bnode.numel() - 1, plan.slots,
+                     float(LAM), float(MU), torch.cuda.current_stream().cuda_stream),
+                  "tet10_force")
+            return y
+
+        key = ("tet10_force", DTYPE_NAMES[dtype])
+        if key not in firsts:
+            firsts[key] = call().clone()
+        rec = library_record(
+            "tet10_force", label, lib_label, call,
+            lambda J=J, v=v, x=x, free=free: tt10.tet10_force(J, v, conn, x, LAM, MU, N,
+                                                              plan=plan, free=free),
+            lambda J=J, v=v, x=x, free=free: tt10.tet10_force_plain(J, v, conn, x, LAM, MU,
+                                                                    plan, free),
+            1e-12 if dtype == torch.float64 else 1e-5, nbytes(J, v, conn, x, free, x),
+            l_flops_per_tet() * T, dtype, firsts[key])
+        recs.append({**rec, "grid": list(res.key), "B": 1})
+    return recs
+
+
 def library_line(rec) -> str:
     first = (f", from the first compared build's {rec['max_diff_first']:.3e}"
              if "max_diff_first" in rec else "")
@@ -502,10 +688,78 @@ def iteration_profile(device, iters: int = 40) -> dict:
             "share_of_busy": {k: v / busy_us for k, v in shares.items()}}
 
 
+def gather_iteration_profile(device, iters: int = 40) -> dict:
+    """Where the flagship f32 CG iteration of the gather engine's device
+    time goes (Tet10MGSolver at DOF1M_TET10, --engine gather's solver): its
+    setup's seconds and peak device memory (the tet10 line blocks among
+    them), ms per iteration, device busy time and activities per iteration, the
+    device time of kernels N, E and B by name, and the line solves (gather,
+    bmm, scatter: no name of their own) by their per-call device time times
+    their 4 calls per iteration."""
+    from tpufem_torch.fem import tet10_mg as tm
+    from tpufem_torch.fem.stencil_mg import _cg_grid_init, _cg_grid_run
+    from tpufem_torch.fem.tet10 import tet10_from_tet4
+    from tpufem_torch.ops import csr_segment_sum as cs
+    from tpufem_torch.sets import build_boundary_sets
+
+    mesh = structured_wing_mesh(*FLAGSHIP_P4, DOF1M_TET10)
+    t10 = tet10_from_tet4(mesh)
+    solver = tm.Tet10MGSolver(DOF1M_TET10, t10, device=device)
+    ut6 = tt10.tet10_upper_t6(t10, build_boundary_sets(mesh).surf_upper_faces)
+    lam, mu = (float(torch.tensor(v, dtype=torch.float32)) for v in (LAM, MU))
+    n10 = torch.as_tensor(t10.nodes10(mesh.nodes), dtype=torch.float32, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    Jinv, vols, Binv, lmax, smg_state = solver._setup(n10, np.asarray(FLAGSHIP_P4), lam, mu)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated(device) - base
+    b = tt10.pressure_loads_t6(n10, ut6, 5e3, t10.num_nodes) * solver.free
+    A, M = solver._ops(Jinv, vols, Binv, lmax, smg_state, lam, mu)
+    cg = _cg_grid_init(A, M, tm._dot64, b, torch.zeros_like(b))
+    run = lambda: _cg_grid_run(A, M, tm._dot64, cg, 0.0, iters)  # noqa: E731  (tol 0: never stops)
+    run()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    counters = {"N": tt10.tet10_force, "E": cs.csr_segment_sum, "B": st.strain_apply}
+    before = {k: c.launches for k, c in counters.items()}
+    t0 = time.perf_counter()
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: (c.launches - before[k]) / iters for k, c in counters.items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in dev) / iters
+    named = {"N tet10_force": "tet10_force_kernel", "E csr_segment_sum": "csr_segment_sum",
+             "B strain_apply": "strain_apply_kernel"}
+    shares = {k: sum(e.time_range.elapsed_us() for e in dev if n in e.name) / iters
+              for k, n in named.items()}
+    shares["line solves"] = 4 * device_time(lambda: solver._line_apply(Binv, b),
+                                            "")["all_device_us"]
+    return {"case": "gather flagship f32 CG iteration", "grid": list(DOF1M_TET10.key), "B": 1,
+            "setup_s": setup_s, "setup_peak_bytes": setup_peak, "iters": iters,
+            "ms_per_iter": start.elapsed_time(end) / iters,
+            "wall_ms_per_iter": wall / iters * 1e3, "busy_us_per_iter": busy_us,
+            "busy_share_of_wall": busy_us / (wall / iters * 1e6),
+            "activities_per_iter": len(dev) / iters, "launches_per_iter": launches,
+            "device_us_per_iter": shares,
+            "share_of_busy": {k: v / busy_us for k, v in shares.items()}}
+
+
 def iteration_line(r) -> str:
     parts = "; ".join(f"{k} {v:.1f} us ({r['share_of_busy'][k]:.1%})"
                       for k, v in r["device_us_per_iter"].items())
-    return (f"[tet10 CG] {r['grid']} B=1 f32, {r['iters']} iterations: {r['ms_per_iter']:.3f} ms "
+    setup = (f"setup {r['setup_s']:.3f} s, peak device memory {r['setup_peak_bytes']} B above "
+             f"the solver's own; " if "setup_s" in r else "")
+    return (f"[tet10 CG] {r['case']} {r['grid']} B=1, {setup}{r['iters']} iterations: "
+            f"{r['ms_per_iter']:.3f} ms "
             f"per iteration (events), device busy {r['busy_us_per_iter']:.1f} us "
             f"({r['busy_share_of_wall']:.1%} of the wall), {r['activities_per_iter']:.0f} "
             f"device activities and launches {r['launches_per_iter']} per iteration; {parts}")
@@ -544,9 +798,22 @@ def main(argv=None) -> int:
                 for rec in measure_library(label, lab, lib, res, p4s, dev, firsts):
                     print(library_line(rec), flush=True)
                     rows.append({**rec, "turn": turn})
-    r = iteration_profile(dev, args.iters)
-    print(iteration_line(r), flush=True)
-    rows.append(r)
+    for label, (res, p4) in N_SHAPES.items():
+        firsts = {}
+        has_n = [(lab, lib) for lab, lib in libs.items() if hasattr(lib, "tpufem_tet10_force_f64")]
+        for turn, order in ((0, has_n), (1, list(reversed(has_n)))):
+            if turn:
+                for rec in measure_N(label, res, p4, dev).values():
+                    print(line(rec), flush=True)
+                    rows.append(rec)
+            for lab, lib in order:
+                for rec in measure_library_N(label, lab, lib, res, p4, dev, firsts):
+                    print(library_line(rec), flush=True)
+                    rows.append({**rec, "turn": turn})
+    for profile_fn in (iteration_profile, gather_iteration_profile):
+        r = profile_fn(dev, args.iters)
+        print(iteration_line(r), flush=True)
+        rows.append(r)
     if args.out:
         with open(args.out, "w") as f:
             f.writelines(json.dumps(r) + "\n" for r in rows)

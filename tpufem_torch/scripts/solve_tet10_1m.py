@@ -1,9 +1,11 @@
 """Solve the flagship tet10 wing on one card — port of
 ``scripts/solve_tet10_1m.py``.
 
-Runs the doubled-grid p-multigrid MG-PCG solver
-(tpufem_torch.fem.tet10_stencil.Tet10StencilT) on the DOF1M_TET10 structured
-wing (96x128x8 cells, 2.51M DOF) at the spec material and pressure, judging
+Runs a p-multigrid MG-PCG solver on the DOF1M_TET10 structured wing
+(96x128x8 cells, 2.51M DOF) at the spec material and pressure: the
+doubled-grid engine (tpufem_torch.fem.tet10_stencil.Tet10StencilT, kernel L;
+the default) or with --engine gather the incidence-gather engine
+(tpufem_torch.fem.tet10_mg.Tet10MGSolver, kernel N), judging
 convergence on the TRUE f64 residual (mixed-precision refinement by
 default), then certifies the solution on the host in 80-bit extended
 precision (tpufem_torch.fem.xprec). Prints one JSON line with tpufem's keys:
@@ -11,11 +13,10 @@ DOF count, iterations, relative residual and wall time.
 
 --device is the port's (default cuda; raises without one). --chunk and
 --elem_chunk are accepted for tpufem's flag set: they bounded a TPU
-dispatch's length and HBM temporaries. --engine gather (tpufem's
-incidence-gather p-MG) is not ported yet and exits nonzero.
+dispatch's length and HBM temporaries.
 
 Example:
-    python -m tpufem_torch.scripts.solve_tet10_1m --refine 8
+    python -m tpufem_torch.scripts.solve_tet10_1m --refine 8 [--engine gather]
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import argparse
 import json
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -33,20 +35,17 @@ from tpufem_torch.scripts import device_arg
 
 RESOLUTION = DOF1M_TET10  # the wing the CLI solves
 P4 = (1.6, 0.4, 20.0, 0.10)  # span, chord, sweep, thickness ratio
-GATHER_NOT_PORTED = "not ported: the tet10 gather engine (ROADMAP Queue 1)"
 
 
 def main(argv=None) -> int:
     rec, _ = run(argv)
-    if rec is None:
-        return 2
     print(json.dumps(rec), flush=True)
     return 0
 
 
 def run(argv=None):
-    """The CLI's work: (the JSON record, {"out": the Tet10Result, "solver",
-    "mesh", "sets"}), or (None, None) where --engine gather refuses."""
+    """The CLI's work: (the JSON record, {"out": the solve's result (one
+    wing: u (N10,3), vm (N10,)), "solver", "mesh", "sets"})."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     # the TRUE f64 residual evaluation itself floors around 7e-6 relative at
     # this mesh's conditioning (tpufem measured it): tol 1e-5 is the bar f64
@@ -69,7 +68,7 @@ def run(argv=None):
                          "certification of the final solution")
     ap.add_argument("--engine", choices=("stencil", "gather"), default="stencil",
                     help="'stencil' (default): the doubled-grid tet10 operator "
-                         "(kernel L); 'gather': the incidence-gather p-MG, not ported yet")
+                         "(kernel L); 'gather': the incidence-gather p-MG (kernel N)")
     ap.add_argument("--repeat", action="store_true",
                     help="solve twice and report the second wall as the headline; "
                          "first-run wall in detail")
@@ -80,9 +79,6 @@ def run(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device of the solve (default cuda; raises without one)")
     args = ap.parse_args(argv)
-    if args.engine == "gather":
-        print(f"--engine gather is {GATHER_NOT_PORTED}", file=sys.stderr)
-        return None, None
     device = device_arg(args.device)
 
     from tpufem_torch.fem.material import Material, lame_params
@@ -92,7 +88,6 @@ def run(argv=None):
         tet10_setup,
         tet10_upper_t6,
     )
-    from tpufem_torch.fem.tet10_stencil import Tet10StencilT
     from tpufem_torch.fem.xprec import tet10_residual_xprec
     from tpufem_torch.mesher import structured_wing_mesh
     from tpufem_torch.sets import build_boundary_sets
@@ -101,9 +96,19 @@ def run(argv=None):
     t_mesh = time.perf_counter()
     mesh = structured_wing_mesh(*P4, res)
     bs = build_boundary_sets(mesh)
-    solver = Tet10StencilT(res, dtype=torch.float32, smooth_degree=args.smooth_degree,
-                           smooth_alpha=args.smooth_alpha, device=device)
-    t10 = solver.t10
+    if args.engine == "stencil":
+        from tpufem_torch.fem.tet10_stencil import Tet10StencilT
+
+        solver = Tet10StencilT(res, dtype=torch.float32, smooth_degree=args.smooth_degree,
+                               smooth_alpha=args.smooth_alpha, device=device)
+        t10 = solver.t10
+    else:
+        from tpufem_torch.fem.tet10 import tet10_from_tet4
+        from tpufem_torch.fem.tet10_mg import Tet10MGSolver
+
+        t10 = tet10_from_tet4(mesh)
+        solver = Tet10MGSolver(res, t10, dtype=torch.float32, elem_chunk=args.elem_chunk or None,
+                               device=device)
     mesh_s = time.perf_counter() - t_mesh
     dof = 3 * t10.num_nodes
     print(f"mesh: {t10.num_nodes} tet10 nodes, {len(t10.tet10)} tets, "
@@ -112,13 +117,17 @@ def run(argv=None):
     free[tet10_root_nodes(t10)] = 0.0
 
     def run_once():
-        out = solver.solve(
-            np.array([P4]), bs.surf_upper_faces, pressure=args.pressure,
-            tol=args.tol, maxiter=args.maxiter, chunk_iters=args.chunk,
-            outer_f64=(args.refine == 0 and not args.f32_outer),
-            refine_steps=0 if args.f32_outer else args.refine,
-            inner_tol=args.inner_tol, progress=True,
-        )
+        kw = dict(pressure=args.pressure, tol=args.tol, maxiter=args.maxiter,
+                  chunk_iters=args.chunk, outer_f64=(args.refine == 0 and not args.f32_outer),
+                  refine_steps=0 if args.f32_outer else args.refine,
+                  inner_tol=args.inner_tol, progress=True)
+        if args.engine == "stencil":
+            b = solver.solve(np.array([P4]), bs.surf_upper_faces, **kw)
+            out = SimpleNamespace(u=b.u[:, :, 0], vm=b.vm[:, 0], iters=int(b.iters),
+                                  rel_residual=float(np.max(b.rel_residual)),
+                                  converged=bool(np.all(b.converged)))
+        else:
+            out = solver.solve(P4, bs.surf_upper_faces, **kw)
         if device.type == "cuda":
             torch.cuda.synchronize()
         return out
@@ -135,8 +144,7 @@ def run(argv=None):
         wall = time.perf_counter() - t0
         print(f"rerun: {wall:.1f} s (first run: {cold_wall:.1f} s)", flush=True)
     timing = dict(solver.last_timing)
-    u = out.u[:, :, 0]
-    vm = out.vm[:, 0]
+    u, vm = out.u, out.vm
 
     xprec_rel = None
     if not args.no_xprec and not args.f32_outer:
@@ -164,8 +172,8 @@ def run(argv=None):
             "dof": int(dof),
             "num_tet10": int(len(t10.tet10)),
             "iters": int(out.iters),
-            "rel_residual": float(np.max(out.rel_residual)),
-            "converged": bool(np.all(out.converged)),
+            "rel_residual": float(out.rel_residual),
+            "converged": bool(out.converged),
             "tol": args.tol,
             "residual_metric": ("recurred f32" if args.f32_outer
                                 else "true f64 residual"),
