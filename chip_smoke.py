@@ -129,14 +129,17 @@ trained checkpoint exists). Along the way:
      midside loads (C = 3) and the connectivity's nodal stress numerator
      (C = 6) and denominator (C = 1); then the tet10 gather engine: (g)
      kernel N (tet10_force, the gather operator: mask, element forces at 4
-     Gauss points, per-node sum, Dirichlet identity in one launch) against
-     its plain version at the flagship, 32x40x4 and a sharp-TE 16x24x4, f64
-     and f32, masked and unmasked (f64 1e-12 of the largest entry, f32 no
-     worse than 2x the plain f32 error against f64, bitwise repeatable,
-     exactly 1 launch and 1 device activity), with event / device (repeated
-     and flushed) / plain times, the bound, torch.sparse.mm of the masked
-     matrix (assembled on the card, checked against N's function), the plan's
-     overlap and ptxas's registers; then, launch counters zeroed: (h) `solve_tet10_1m --engine
+     Gauss points, per-node sum, Dirichlet identity; each tet evaluated once,
+     a launch over the tiles of its plan and one over its halo nodes)
+     against its plain version at the flagship, 32x40x4 and a sharp-TE
+     16x24x4, f64 and f32, masked and unmasked (f64 1e-12 of the largest
+     entry, f32 no worse than 2x the plain f32 error against f64, bitwise
+     repeatable, one count and exactly 2 launches and 2 device activities a
+     call), with event / device (repeated and flushed, both launches and
+     each alone) / plain times, the bound, torch.sparse.mm of the masked
+     matrix (assembled on the card, checked against N's function), the
+     plan's overlap, blocks, rows, shared memory and halo share, and ptxas's
+     registers; then, launch counters zeroed: (h) `solve_tet10_1m --engine
      gather --refine 8`: converged, TRUE f64 rel <= 1e-5 on the device and
      on the CPU, xprec <= 1e-5, max vM within 1e-3 of the record's and of
      (c)'s, tip u_z < 0, root vM > 3x tip vM (iterations, launches per CG
@@ -152,9 +155,9 @@ trained checkpoint exists). Along the way:
 Every phase raises on failure; the script then exits nonzero and prints no
 result. Usage: python3 chip_smoke.py   (one card, no arguments)
 
-Its phases took 303-307 s (phase 6: 33-36 s with kernel E at every plan,
-phase 7: 38 s, phase 8: 78-83 s, phase 9: 83-101 s with the gather engine)
-on an NVIDIA H100 80GB HBM3 at 700 W.
+Its phases took 320-359 s (phase 6: 30-40 s with kernel E at every plan,
+phase 7: 35-47 s, phase 8: 82-98 s, phase 9: 98-100 s with the gather
+engine) on an NVIDIA H100 80GB HBM3 at 700 W.
 """
 
 from __future__ import annotations
@@ -1779,7 +1782,7 @@ def run_tet10_gather(dev, state, smi, lam, mu):
 
     # ---- 9g. kernel N at the flagship, 32x40x4 and a sharp-TE 16x24x4
     regs = {k: v for k, v in ptxas_report(build_info.get("log", "")).items()
-            if "tet10_force_kernel" in k}
+            if "tet10_force" in k}
     print(f"[kernel N] ptxas: " + "; ".join(f"{k}: {r} registers, {ss} / {sl} B spilled"
                                            for k, (r, ss, sl) in sorted(regs.items())), flush=True)
     nrec = {}
@@ -1889,12 +1892,18 @@ def run_tet10_gather(dev, state, smi, lam, mu):
         **{k: rec32[k] for k in ("max_abs_err", "ms", "plain_ms")},
         "bound_ms": rec32["bound_us"] / 1e3, "bound_by": rec32["bound_by"],
         "library_ms": rec32["library_ms"],
+        "launches_per_call": rec32["launches"],
         **{k: rec32[k] for k in ("device_us", "device_us_cold", "share", "share_repeated",
-                                 "activities", "bytes", "flops", "overlap", "blocks")},
+                                 "activities", "bytes", "flops", "overlap", "blocks", "rows",
+                                 "closure", "smem_bytes", "halo_nodes", "halo_rows", "halo_share",
+                                 "tiles_us_cold", "halo_us_cold")},
         "ptxas": {k: list(v) for k, v in regs.items()},
         "f64": {k: rec64[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_us", "bound_by",
-                                      "device_us", "device_us_cold", "share", "library_ms")},
-        "shapes": {lbl: {k: {f: r.get(f) for f in ("grid", "T", "N", "overlap", "max_abs_err",
+                                      "device_us", "device_us_cold", "share", "library_ms",
+                                      "smem_bytes", "tiles_us_cold", "halo_us_cold")},
+        "shapes": {lbl: {k: {f: r.get(f) for f in ("grid", "T", "N", "overlap", "blocks",
+                                                   "rows", "smem_bytes", "halo_share",
+                                                   "max_abs_err",
                                                    "err_vs_f64", "plain_err_vs_f64", "ms",
                                                    "plain_ms", "bound_us", "bound_by",
                                                    "device_us", "device_us_cold", "share",

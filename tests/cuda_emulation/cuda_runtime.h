@@ -4,7 +4,8 @@
 // them, __shared__ one copy per kernel, the dynamic shared memory one buffer
 // filled with NaN bytes before each block), the blocks one after another in
 // a seeded shuffled order, so that a schedule's order never decides a result.
-// Device loads and stores, fences and atomics are plain host operations.
+// Device loads and stores, fences and atomics are plain host operations; the
+// rounding intrinsics (__fma_rn) are std::fma.
 // tests/test_torch_tet10_kernels_host.py rewrites each `kernel<<<grid, block,
 // smem, stream>>>(args)` launch into emu_launch and the extern dynamic
 // shared array into emu_smem before it compiles a source.
@@ -56,6 +57,8 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 132; return cudaSuccess; }
 
+inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 template <class T>
 T __ldg(const T* p) { return *p; }
 template <class T>

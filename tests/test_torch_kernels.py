@@ -1006,27 +1006,30 @@ def test_tet10_solve_on_cuda_matches_cpu(cuda):
 
 @pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("slots", [None, 37], ids=["SLOTS", "37-row-blocks"])
+@pytest.mark.parametrize("tile", [None, 7], ids=["TILE_TETS", "7-tet-tiles"])
 @pytest.mark.parametrize("grid", ["8x6x2-floored", "6x4x2-sharp-te"])
-def test_tet10_force_kernel_matches_plain(cuda, grid, slots, dtype, masked):
+def test_tet10_force_kernel_matches_plain(cuda, grid, tile, dtype, masked):
     """Kernel N against tet10_force_plain (f64 1e-12 of the largest entry;
     f32 against the f64 result no worse than 2x the plain f32 version), one
-    launch, the same bits twice, one device activity, the Dirichlet rows the
-    identity; at the plan's SLOTS and at odd 37-row blocks."""
+    count, the same bits twice, two launches and device activities (its
+    tiles and its halo nodes; one where a single block holds every tet),
+    the Dirichlet rows the identity; at the plan's own tiles and at odd
+    7-tet tiles (most nodes halo nodes), with the same bits."""
     from tpufem_torch.fem import tet10 as tt10
     from tpufem_torch.profile_tet10 import n_inputs
 
-    J64, v64, conn, x64, f64, _, t10 = n_inputs(TET10_GRIDS[grid], P4[0], cuda)
-    plan = tas.build_incidence(t10.tet10, t10.num_nodes, cuda, slots=slots)
+    J64, v64, conn, x64, f64, own, t10 = n_inputs(TET10_GRIDS[grid], P4[0], cuda)
+    plan = own if tile is None else tt10.force_plan(t10, cuda, tile_tets=tile)
     ref64 = tt10.tet10_force_plain(J64, v64, conn, x64, LAM, MU, plan, f64 if masked else None)
     J, v, x = J64.to(dtype), v64.to(dtype), x64.to(dtype)
     free = f64.to(dtype) if masked else None
-    call = lambda: tt10.tet10_force(J, v, conn, x, LAM, MU, x.shape[0], plan=plan,  # noqa: E731
-                                    free=free)
+    call = lambda p=plan: tt10.tet10_force(J, v, conn, x, LAM, MU, x.shape[0],  # noqa: E731
+                                           plan=p, free=free)
     before = tt10.tet10_force.launches
     y = call()
     assert tt10.tet10_force.launches == before + 1
     assert torch.equal(y, call())  # no atomics
+    assert torch.equal(y, call(own))  # each node's sum in the same order at any tiles
     scale = ref64.abs().max().item()
     if dtype == torch.float64:
         assert (y - ref64).abs().max().item() <= 1e-12 * scale
@@ -1038,7 +1041,8 @@ def test_tet10_force_kernel_matches_plain(cuda, grid, slots, dtype, masked):
         root = f64[:, 0] == 0
         assert torch.equal(y[root], x[root])
     r = device_time(call, "tet10_force")
-    assert r["launches"] == 1 and r["activities"] == 1, r
+    n = 1 + (plan.hnode.numel() > 0)  # no halo launch where one block holds every tet
+    assert r["launches"] == n and r["activities"] == n, r
 
 
 def test_tet10_force_rejects_bad_input(cuda):
@@ -1049,7 +1053,7 @@ def test_tet10_force_rejects_bad_input(cuda):
     N = x.shape[0]
     for bad in (dict(x=x.float()), dict(x=x.t().contiguous().t()), dict(conn=conn.long()),
                 dict(free=free.cpu()), dict(plan=tt10.connectivity_plan(t10.tet10, N, cuda)),
-                dict(x=x.clone().requires_grad_())):
+                dict(plan=None), dict(x=x.clone().requires_grad_())):
         kw = {"J": J, "v": v, "conn": conn, "x": x, "free": free, "plan": plan, **bad}
         with pytest.raises((ValueError, TypeError)):
             tt10.tet10_force(kw["J"], kw["v"], kw["conn"], kw["x"], LAM, MU, N, plan=kw["plan"],

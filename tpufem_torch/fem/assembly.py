@@ -34,8 +34,8 @@ class IncidencePlan(NamedTuple):
     """The per-node sum plan of the (tet*k + corner) force rows of a (T,k)
     connectivity: the CSR plan of tets.reshape(-1) (the first six fields are
     a CsrPlan's, and csr_segment_sum reads a plan by those names, so it takes
-    this one too) and the cut of the nodes into blocks that kernels D (k = 4)
-    and N (tet10, k = 10) walk."""
+    this one too) and the cut of the nodes into blocks that kernel D walks
+    (k = 4; kernel N's first design walked it at k = 10)."""
 
     order: torch.Tensor  # (kT,) int32: stable argsort of tets.reshape(-1)
     starts: torch.Tensor  # (N+1,) int32: node n's rows are order[starts[n]:starts[n+1]]
@@ -59,7 +59,7 @@ def build_incidence(tets, num_nodes: int, device="cpu", slots: int | None = None
     tpufem stored the same stable argsort as a dense (N, V) padded gather
     table, because XLA:TPU's scatter serialized on duplicate indices
     (assembly.py:20-25). The port keeps it as CSR, walked row by row in a
-    fixed order: no padding, no atomics. For kernels D and N the nodes are cut
+    fixed order: no padding, no atomics. For kernel D the nodes are cut
     greedily into contiguous ranges of at most `slots` rows (a node of higher
     valence gets a block of its own, up to SLOT_LIMIT rows, what a block's
     shared memory holds; beyond that it raises), and each range lists the
@@ -72,8 +72,8 @@ def build_incidence(tets, num_nodes: int, device="cpu", slots: int | None = None
     order, starts, flat = csr_arrays(tets, num_nodes)
     slots = max(SLOTS if slots is None else slots, int(np.diff(starts).max(initial=0)))
     if slots > SLOT_LIMIT:
-        raise ValueError(f"a node with {slots} incident tets: kernel D's and N's blocks hold at "
-                         f"most {SLOT_LIMIT}")
+        raise ValueError(f"a node with {slots} incident tets: kernel D's blocks hold at most "
+                         f"{SLOT_LIMIT}")
     pos = np.empty(len(order), np.int32)
     pos[order] = np.arange(len(order), dtype=np.int32)
     bnode = [0]
@@ -125,24 +125,26 @@ def stiffness_apply_plain(grads, vols, tets, x, lam, mu, plan: IncidencePlan, fr
     return y if free is None else y * free + x * (1.0 - free)
 
 
-def check_incidence_inputs(name: str, geo: dict, tets, x, plan: IncidencePlan, free,
-                           aligned: dict | None = None) -> None:
-    """Raise unless kernel `name` (a walk over an incidence plan: D, N)
-    takes these inputs as they are: the per-tet geometry `geo` ({label:
-    (tensor, its shape)}), x (N,3) and free (N,3) or None of one float dtype
-    (f32 or f64), tets (T,k) int32 and its IncidencePlan over N nodes, all
-    contiguous on one device, the tensors of `aligned` ({label: tensor})
-    16-byte aligned, kT and 3N below 2^31 (the kernel indexes in 32 bits),
-    and none of them wanting a gradient (the kernel has no backward). The
-    plan's values are trusted."""
+def check_incidence_inputs(name: str, geo: dict, tets, x, plan, free,
+                           aligned: dict | None = None, kind=IncidencePlan,
+                           builder: str = "build_incidence") -> None:
+    """Raise unless kernel `name` (an operator over a connectivity's plan:
+    D, N) takes these inputs as they are: the per-tet geometry `geo`
+    ({label: (tensor, its shape)}), x (N,3) and free (N,3) or None of one
+    float dtype (f32 or f64), tets (T,k) int32 and its plan over N nodes (a
+    `kind`, made by `builder`), all contiguous on one device, the tensors of
+    `aligned` ({label: tensor}) 16-byte aligned, kT and 3N below 2^31 (the
+    kernel indexes in 32 bits), and none of them wanting a gradient (the
+    kernel has no backward). The plan's values are trusted; its tensors,
+    which its builder makes together, stand checked by its `order`."""
     floats = [t for t, _ in geo.values()] + [t for t in (x, free) if t is not None]
     if x.dtype not in (torch.float32, torch.float64) or any(t.dtype != x.dtype for t in floats):
         raise TypeError(f"kernel {name} takes one float dtype (f32/f64), got "
                         f"{[str(t.dtype) for t in floats]}")
     if tets.dtype != torch.int32:
         raise TypeError(f"kernel {name} takes int32 tets, got {tets.dtype}")
-    if not isinstance(plan, IncidencePlan):
-        raise TypeError(f"kernel {name} walks an IncidencePlan (build_incidence), not "
+    if not isinstance(plan, kind):
+        raise TypeError(f"kernel {name} takes a {kind.__name__} ({builder}), not "
                         f"{type(plan).__name__}")
     T = tets.shape[0]
     N = x.shape[0] if x.dim() == 2 else -1
@@ -156,7 +158,7 @@ def check_incidence_inputs(name: str, geo: dict, tets, x, plan: IncidencePlan, f
         raise ValueError(f"kernel {name}: a plan of {plan.order.shape[0]} rows over "
                          f"{plan.num_segments} nodes against {tuple(tets.shape)} tets and {N} "
                          f"nodes")
-    tensors = [*floats, tets, plan.pos, plan.bnode, plan.bt_start, plan.btet, plan.starts]
+    tensors = [*floats, tets, plan.order]
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"kernel {name}: inputs and plan lie on different devices")
     if not all(t.is_contiguous() for t in tensors):

@@ -15,9 +15,9 @@ last bits, and with them iteration counts, from run to run. The plan of a
 connectivity is built on the host once and may be passed in.
 
 The operator ``tet10_force`` (with the Dirichlet mask, the gather engine's
-``A``) is kernel N (``csrc/tet10_force.cu``) on a CUDA tensor, one launch over
-the connectivity's incidence plan (``force_plan``), and
-``tet10_force_plain`` on a CPU tensor. The gather engine's pieces follow:
+``A``) is kernel N (``csrc/tet10_force.cu``) on a CUDA tensor, over the
+connectivity's tile plan (``force_plan``: every tet in one block of
+neighbours), and ``tet10_force_plain`` on a CPU tensor. The gather engine's pieces follow:
 ``tet10_diagonal``, ``tet10_line_blocks`` (one fixed-order sum over the
 same-station node pairs, ``line_plan10``) and the two-level host-facing
 solve ``solve_tet10_case``; its p-multigrid is ``fem.tet10_mg``.
@@ -26,11 +26,12 @@ solve ``solve_tet10_case``; its p-multigrid is ``fem.tet10_mg``.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from tpufem_torch.fem.assembly import IncidencePlan, build_incidence, check_incidence_inputs
+from tpufem_torch.fem.assembly import check_incidence_inputs
 from tpufem_torch.fem.precond import (
     build_line_plan_arrays,
     mask_and_invert,
@@ -40,6 +41,7 @@ from tpufem_torch.fem.precond import (
 from tpufem_torch.mesh_types import Mesh
 from tpufem_torch.ops.csr_segment_sum import (
     CsrPlan,
+    csr_arrays,
     csr_plan,
     csr_segment_sum,
     csr_segment_sum_plain,
@@ -230,12 +232,223 @@ def connectivity_plan(tet10, num_nodes: int, device) -> CsrPlan:
     return csr_plan(_host(tet10), num_nodes, device)
 
 
-def force_plan(tet10, num_nodes: int, device) -> IncidencePlan:
-    """The incidence plan of the (T,10) connectivity (host, once per
-    topology): kernel N's blocks, and the CSR plan of the same node ids (its
-    first fields), so it also serves the segment sums of tet10_diagonal and
-    tet10_stress_nodal."""
-    return build_incidence(_host(tet10), num_nodes, device)
+def default_plan(tet10, num_nodes: int, device) -> CsrPlan:
+    """The plan of a tet10_force or tet10_operator call that gives none: the
+    connectivity's CSR plan, all the plain version reads. Kernel N takes
+    the mesh's force_plan, which a bare connectivity cannot give (its cut
+    follows the mesh's station metadata), so a CUDA device raises."""
+    if torch.device(device).type == "cuda":
+        raise ValueError("kernel N takes the mesh's plan: pass plan=force_plan(t10, device), "
+                         "built once per topology")
+    return connectivity_plan(tet10, num_nodes, device)
+
+
+TILE_TETS = 432  # a block's tets, about: 3 x 3 cells at the flagship's full thickness
+MIN_BLOCKS = 264  # smaller tiles where a mesh has fewer: two blocks on each of 132 SMs
+MIN_TILE = 64  # but not below this many tets
+TILE_ROWS = 4800  # a block's most interior rows and nodes: 112.5 KB of f64, two blocks an SM
+SMEM_LIMIT = 232448  # a Hopper block's most shared memory
+
+
+class ForcePlan10(NamedTuple):
+    """Kernel N's plan of a (T,10) connectivity (force_plan): the CSR plan of
+    tet10.reshape(-1) (the first six fields are a CsrPlan's, so kernel E and
+    csr_segment_sum take it too: tet10_diagonal, tet10_stress_nodal) and the
+    cut of the tets into blocks, every tet in one. A node whose entries all
+    come from one block's tets is interior to that block; every other node
+    (one no tet touches too) is a halo node. Each node's rows, in shared
+    memory or gathered from the halo scratch (`hslot`), lie in ascending
+    t*10+m order. A block stages the displacements of its tets' nodes (its
+    closure) in shared memory beside its interior rows. The halo scratch is
+    laid out in the order a block's warps write it (by block, warp of 32
+    listed tets, m, lane), so that a warp's halo rows for one m are
+    consecutive slots and its stores coalesce."""
+
+    order: torch.Tensor  # (10T,) int32: stable argsort of tet10.reshape(-1)
+    starts: torch.Tensor  # (N+1,) int32: node n's rows are order[starts[n]:starts[n+1]]
+    seg: torch.Tensor  # (10T,) int64: the node of each row of `order`
+    num_segments: int
+    starts_host: np.ndarray  # (N+1,) int64: `starts` on the host (kernel E's cut)
+    launch: dict  # kernel E's cuts by row width, filled at first use (launch_plan)
+    ttet: torch.Tensor  # (T,) int32: the tets in block order, ascending within a block
+    tstart: torch.Tensor  # (n_blocks+1,) int32: block b lists ttet[tstart[b]:tstart[b+1]]
+    dst: torch.Tensor  # (10T,) int32: entry m of listed tet l at l*10+m: its row in its
+    #                    block's shared memory, or ~ (bitwise not) its slot of the halo scratch
+    inode: torch.Tensor  # int32: the interior nodes, block after block, ascending
+    istart: torch.Tensor  # (n_blocks+1,) int32: block b's are inode[istart[b]:istart[b+1]]
+    irow: torch.Tensor  # (len(inode)+1,) int32: interior node i's rows irow[i]:irow[i+1],
+    #                     less irow[istart[b]] of its block b
+    hnode: torch.Tensor  # int32: the halo nodes, ascending
+    hrow: torch.Tensor  # (len(hnode)+1,) int32: halo node i's rows hrow[i]:hrow[i+1]
+    hslot: torch.Tensor  # (halo_rows,) int32: each halo row's slot of the scratch
+    cnode: torch.Tensor  # int32: the nodes of each block's tets, block after block, ascending
+    cstart: torch.Tensor  # (n_blocks+1,) int32: block b's are cnode[cstart[b]:cstart[b+1]]
+    lnode: torch.Tensor  # (10T,) int16: node m of listed tet l at l*10+m: its place in its
+    #                      block's cnode
+    rows: int  # the most interior rows of one block
+    closure: int  # the most nodes of one block's tets (its shared memory: 3 values a row and
+    #               a node)
+    halo_rows: int  # the scratch's rows
+    overlap: float  # tet evaluations per tet: 1
+    halo_share: float  # halo rows / 10T
+    args: tuple  # the kernel's plan arguments, ttet's pointer to closure, made once
+    scratch: dict  # the halo scratch by (dtype, stream), made at first use (tet10_force)
+
+
+def tet_cells(t10: Tet10Mesh) -> np.ndarray | None:
+    """(T,2) the (chord, span) cell of each tet of a structured wing: the
+    least doubled-grid station index of its corners, halved (a Kuhn tet holds
+    its cell's first corner); None on a mesh without station metadata."""
+    if t10.station_id is None:
+        return None
+    nj2 = 2 * int(t10.mesh4.meta["num_span_stations"]) - 1
+    st = t10.station_id.astype(np.int64)[t10.tet10[:, :4]]
+    return np.stack([(st // nj2).min(axis=1) // 2, (st % nj2).min(axis=1) // 2], axis=1)
+
+
+def _tile_blocks(cells: np.ndarray, tile_tets: int) -> list:
+    """Blocks of tets of a structured wing: tiles of a x b cells at full
+    thickness, about tile_tets tets each (a tile with more is cut into equal
+    runs of its tets); each block's tets ascending."""
+    ci, cj = cells[:, 0].astype(np.int64), cells[:, 1].astype(np.int64)
+    nj = int(cj.max()) + 1
+    per_col = int(np.bincount(ci * nj + cj).max())  # the fullest column's tets
+    cols = max(1, round(tile_tets / per_col))
+    a = max(1, int(np.sqrt(cols)))
+    b = max(1, cols // a)
+    key = (ci // a) * (nj // b + 1) + cj // b
+    order = np.argsort(key, kind="stable")  # by tile, the tets ascending in each
+    bounds = np.flatnonzero(np.diff(key[order])) + 1
+    blocks = []
+    for tile in np.split(order, bounds):
+        blocks += np.array_split(tile, -(-len(tile) // tile_tets))
+    return blocks
+
+
+def _rcm_blocks(tets: np.ndarray, num_nodes: int, tile_tets: int) -> list:
+    """Blocks of tets of any mesh: the nodes in reverse Cuthill-McKee order of
+    the node graph, each tet keyed by its lowest reordered node, runs of
+    tile_tets tets in that order; each block's tets ascending."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    T, k = tets.shape
+    inc = csr_matrix((np.ones(T * k, np.int32), tets.reshape(-1), np.arange(0, T * k + 1, k)),
+                     shape=(T, num_nodes))
+    perm = reverse_cuthill_mckee((inc.T @ inc).tocsr(), symmetric_mode=True)
+    rank = np.empty(num_nodes, np.int64)
+    rank[perm] = np.arange(num_nodes)
+    order = np.argsort(rank[tets].min(axis=1), kind="stable")
+    return [np.sort(b) for b in np.array_split(order, max(1, -(-T // tile_tets)))]
+
+
+def _interior(order, starts, blk_of_tet, k: int):
+    """(block of each node, interior mask): a node is interior when all its
+    entries' tets lie in one block; a node no tet touches is not."""
+    val = np.diff(starts)
+    touched = np.flatnonzero(val)
+    eb = blk_of_tet[order // k]
+    first = starts[touched]
+    bmin = np.full(len(val), -1, np.int64)
+    bmax = np.full(len(val), -2, np.int64)
+    if len(touched):
+        bmin[touched] = np.minimum.reduceat(eb, first)
+        bmax[touched] = np.maximum.reduceat(eb, first)
+    return bmin, bmin == bmax
+
+
+def force_plan(t10: Tet10Mesh, device, tile_tets: int = TILE_TETS) -> ForcePlan10:
+    """Kernel N's plan of the mesh's (T,10) connectivity (host, once per
+    topology; ForcePlan10): its CSR plan, so it also serves the segment sums
+    of tet10_diagonal and tet10_stress_nodal, and its blocks of neighbouring
+    tets, each tet in one. A structured wing (station metadata) is cut into
+    tiles of cells at full thickness (tet_cells); the tets of any other mesh
+    follow the reverse Cuthill-McKee order of its nodes. Blocks hold about
+    tile_tets tets (smaller ones put most nodes on the halo: the tests' cuts),
+    fewer (down to MIN_TILE) where that leaves under MIN_BLOCKS blocks, and
+    a block with more than TILE_ROWS interior rows and staged nodes is
+    halved until none has."""
+    tets = np.asarray(t10.tet10).astype(np.int64)
+    num_nodes = t10.num_nodes
+    cells = tet_cells(t10)
+    T, k = tets.shape
+    order, starts, flat = csr_arrays(tets, num_nodes)
+    val = np.diff(starts)
+    tile_tets = max(1, min(tile_tets, max(MIN_TILE, -(-T // MIN_BLOCKS))))
+    if T == 0:
+        blocks = []
+    elif cells is not None:
+        blocks = _tile_blocks(cells, tile_tets)
+    else:
+        blocks = _rcm_blocks(tets, num_nodes, tile_tets)
+    while True:  # halve the blocks whose rows and nodes overflow their shared memory
+        blk_of_tet = np.empty(T, np.int64)
+        for b, ts_ in enumerate(blocks):
+            blk_of_tet[ts_] = b
+        bnode, interior = _interior(order, starts, blk_of_tet, k)
+        rows = np.bincount(bnode[interior], weights=val[interior], minlength=len(blocks))
+        pairs = np.unique(np.repeat(blk_of_tet, k) * num_nodes + flat)  # (block, node)
+        closure = np.bincount(pairs // num_nodes, minlength=len(blocks))
+        over = np.flatnonzero(rows + closure > TILE_ROWS)
+        if not len(over):
+            break
+        for b in over[::-1]:
+            blocks[b:b + 1] = np.array_split(blocks[b], 2)
+    nb = len(blocks)
+    ttet = np.concatenate(blocks) if nb else np.zeros(0, np.int64)
+    tstart = np.zeros(nb + 1, np.int64)
+    np.cumsum([len(b) for b in blocks], out=tstart[1:])
+    inode = np.flatnonzero(interior)
+    inode = inode[np.argsort(bnode[inode], kind="stable")]  # block-major, ascending
+    istart = np.zeros(nb + 1, np.int64)
+    np.cumsum(np.bincount(bnode[inode], minlength=nb), out=istart[1:])
+    irow = np.zeros(len(inode) + 1, np.int64)
+    np.cumsum(val[inode], out=irow[1:])
+    hnode = np.flatnonzero(~interior)
+    hrow = np.zeros(len(hnode) + 1, np.int64)
+    np.cumsum(val[hnode], out=hrow[1:])
+    # each node's first row: in its block's shared memory, or in the scratch
+    first = np.zeros(num_nodes, np.int64)
+    first[inode] = irow[:-1] - irow[istart[bnode[inode]]]
+    first[hnode] = hrow[:-1]
+    pos = np.empty(T * k, np.int64)
+    pos[order] = np.arange(T * k)
+    dst = (first[flat] + pos - starts[flat]).reshape(T, k)[ttet]  # each listed entry's row
+    # halo slots: by block, warp of 32 listed tets (g), m, lane
+    lpos = np.arange(T) - np.repeat(tstart[:-1], np.diff(tstart))  # place in its block's list
+    warps = -(-np.diff(tstart) // 32)  # each block's warps of 32 listed tets
+    g = np.repeat(np.cumsum(warps) - warps, np.diff(tstart)) + lpos // 32
+    halo_e = ~interior[flat].reshape(T, k)[ttet]
+    key = ((g[:, None] * k + np.arange(k)) * 32 + (lpos % 32)[:, None])[halo_e]
+    slot = np.empty(len(key), np.int64)
+    slot[np.argsort(key, kind="stable")] = np.arange(len(key))
+    hslot = np.empty(len(key), np.int64)
+    hslot[dst[halo_e]] = slot
+    dst[halo_e] = ~slot
+    block_rows = irow[istart[1:]] - irow[istart[:-1]]
+    cstart = np.zeros(nb + 1, np.int64)
+    np.cumsum(closure, out=cstart[1:])
+    listed = (ttet[:, None] * k + np.arange(k)).reshape(-1)  # entries in block order
+    blk_listed = np.repeat(np.arange(nb), np.diff(tstart) * k)
+    lnode = np.searchsorted(pairs, blk_listed * num_nodes + flat[listed]) - cstart[blk_listed]
+
+    def to_dev(a, dtype=np.int32):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype), device=device)
+
+    plan = ForcePlan10(
+        order=to_dev(order), starts=to_dev(starts), seg=to_dev(flat[order], np.int64),
+        num_segments=int(num_nodes), starts_host=starts, launch={}, ttet=to_dev(ttet),
+        tstart=to_dev(tstart), dst=to_dev(dst.reshape(-1)), inode=to_dev(inode),
+        istart=to_dev(istart), irow=to_dev(irow), hnode=to_dev(hnode), hrow=to_dev(hrow),
+        hslot=to_dev(hslot), cnode=to_dev(pairs % max(num_nodes, 1)), cstart=to_dev(cstart),
+        lnode=to_dev(lnode, np.int16), rows=int(block_rows.max(initial=0)),
+        closure=int(closure.max(initial=0)), halo_rows=int(hrow[-1]), overlap=1.0,
+        halo_share=float(hrow[-1] / max(T * k, 1)), args=(), scratch={})
+    return plan._replace(args=(
+        *(t.data_ptr() for t in (plan.ttet, plan.tstart, plan.dst, plan.inode, plan.istart,
+                                 plan.irow, plan.hnode, plan.hrow, plan.hslot, plan.cnode,
+                                 plan.cstart, plan.lnode)),
+        nb, len(hnode), plan.rows, plan.closure))
 
 
 def _host(a) -> np.ndarray:
@@ -246,13 +459,13 @@ def tet10_force_plain(Jinv, vols, tet10, x, lam, mu, plan, free=None):
     """Plain PyTorch version of kernel N: y (N,3) = K(x * free) * free +
     x * (1 - free), or K x where `free` is None; the element forces of
     _tet10_fe added per node in the plan's order from zero (any plan of
-    tet10.reshape(-1): a CsrPlan or an IncidencePlan)."""
+    tet10.reshape(-1): a CsrPlan or a ForcePlan10)."""
     u = x if free is None else x * free
     y = csr_segment_sum_plain(_tet10_fe(Jinv, vols, tet10, u, lam, mu).reshape(-1, 3), plan)
     return y if free is None else y * free + x * (1.0 - free)
 
 
-def check_tet10_force_inputs(Jinv, vols, tet10, x, plan: IncidencePlan, free) -> None:
+def check_tet10_force_inputs(Jinv, vols, tet10, x, plan: ForcePlan10, free) -> None:
     """Raise unless kernel N takes these inputs as they are
     (assembly.check_incidence_inputs): Jinv (T,3,3), vols (T,), tet10
     (T,10) and its force_plan."""
@@ -260,7 +473,11 @@ def check_tet10_force_inputs(Jinv, vols, tet10, x, plan: IncidencePlan, free) ->
     if tet10.shape[1:] != (10,):
         raise ValueError(f"kernel N takes (T,10) tets, got {tuple(tet10.shape)}")
     check_incidence_inputs("N", {"Jinv": (Jinv, (T, 3, 3)), "vols": (vols, (T,))}, tet10, x,
-                           plan, free)
+                           plan, free, kind=ForcePlan10, builder="force_plan")
+    if (3 * plan.halo_rows >= 2**31
+            or (plan.rows + plan.closure) * 3 * x.element_size() > SMEM_LIMIT):
+        raise ValueError(f"kernel N: a plan of {plan.halo_rows} halo rows and blocks of "
+                         f"{plan.rows} rows and {plan.closure} nodes does not fit the kernel")
 
 
 def tet10_force(Jinv, vols, tet10, u_nodes, lam, mu, num_nodes, elem_chunk=None, plan=None,
@@ -268,27 +485,31 @@ def tet10_force(Jinv, vols, tet10, u_nodes, lam, mu, num_nodes, elem_chunk=None,
     """y = K u (N,3) for tet10, quadrature-point tensor form; with `free`
     (N,3), the masked operator y = K(u * free) * free + u * (1 - free).
 
-    A CPU tensor takes tet10_force_plain. A CUDA tensor launches kernel N
-    (csrc/tet10_force.cu), one launch for the whole function, over `plan`
-    (force_plan, built here when not given), or raises
-    (check_tet10_force_inputs). `elem_chunk` is accepted and ignored: tpufem
+    A CPU tensor takes tet10_force_plain (over the connectivity's CSR plan
+    when `plan` is not given). A CUDA tensor launches kernel N
+    (csrc/tet10_force.cu: its tiles, then its halo nodes, on the current
+    stream; one count in `launches`) over `plan`, the mesh's force_plan, or
+    raises (check_tet10_force_inputs). The halo scratch is the plan's, one
+    for each dtype and stream. `elem_chunk` is accepted and ignored: tpufem
     scanned element blocks to bound its temporaries in a TPU's HBM; kernel N
-    keeps the element forces in shared memory."""
+    keeps the element forces in shared memory and its halo scratch."""
     del elem_chunk
-    plan = plan or force_plan(tet10, num_nodes, u_nodes.device)
+    plan = plan or default_plan(tet10, num_nodes, u_nodes.device)
     if not u_nodes.is_cuda:
         return tet10_force_plain(Jinv, vols, tet10, u_nodes, lam, mu, plan, free)
     check_tet10_force_inputs(Jinv, vols, tet10, u_nodes, plan, free)
     y = torch.empty_like(u_nodes)
+    stream = torch.cuda.current_stream(u_nodes.device).cuda_stream
+    halo = plan.scratch.get((u_nodes.dtype, stream))
+    if halo is None:
+        halo = plan.scratch[(u_nodes.dtype, stream)] = torch.empty(
+            3 * plan.halo_rows, dtype=u_nodes.dtype, device=u_nodes.device)
     lib = load_kernels()
-    fn = (lib.tpufem_tet10_force_f64 if u_nodes.dtype == torch.float64
-          else lib.tpufem_tet10_force_f32)
-    status = fn(Jinv.data_ptr(), vols.data_ptr(), tet10.data_ptr(), plan.pos.data_ptr(),
-                plan.btet.data_ptr(), plan.bt_start.data_ptr(), plan.bnode.data_ptr(),
-                plan.starts.data_ptr(), u_nodes.data_ptr(),
-                None if free is None else free.data_ptr(), y.data_ptr(),
-                plan.bnode.shape[0] - 1, plan.slots, float(lam), float(mu),
-                torch.cuda.current_stream(u_nodes.device).cuda_stream)
+    fn = (lib.tpufem_tet10_force_tiled_f64 if u_nodes.dtype == torch.float64
+          else lib.tpufem_tet10_force_tiled_f32)
+    status = fn(Jinv.data_ptr(), vols.data_ptr(), *plan.args[:12], u_nodes.data_ptr(),
+                None if free is None else free.data_ptr(), y.data_ptr(), halo.data_ptr(),
+                *plan.args[12:], float(lam), float(mu), stream)
     check(status, "tet10_force")
     tet10_force.launches += 1
     return y
@@ -301,7 +522,7 @@ def tet10_operator(Jinv, vols, tet10, lam, mu, num_nodes, free_mask, plan=None):
     """A(x) for the BC-reduced SPD system in flat (N*3,) layout: one
     tet10_force call with the Dirichlet mask (kernel N on the card)."""
     free3 = free_mask.reshape(-1, 3)
-    plan = plan or force_plan(tet10, num_nodes, free3.device)
+    plan = plan or default_plan(tet10, num_nodes, free3.device)
 
     def apply(x_flat):
         return tet10_force(Jinv, vols, tet10, x_flat.reshape(-1, 3), lam, mu, num_nodes,
@@ -505,7 +726,7 @@ def solve_tet10_case(
     nodes10 = torch.as_tensor(t10.nodes10(t10.mesh4.nodes), dtype=dtype, device=device)
     conn = torch.as_tensor(t10.tet10, dtype=torch.int32, device=device)
     N = t10.num_nodes
-    plan = force_plan(t10.tet10, N, device)
+    plan = force_plan(t10, device)
     free = dirichlet_mask(N, nroot_nodes10, dtype=dtype, device=device)
     Jinv, vols = tet10_setup(nodes10, conn)
     f = pressure_loads_t6(nodes10, upper_t6, pressure, N)

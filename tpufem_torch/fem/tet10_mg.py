@@ -12,7 +12,7 @@
                     SAME resolution
 
 The operator (`_apply_A`) is kernel N (csrc/tet10_force.cu) on the card and
-its plain version on the CPU, over the connectivity's incidence plan; the
+its plain version on the CPU, over the connectivity's tile plan; the
 restriction's two sums over the edge endpoints are kernel E; the
 thickness-line solve is a gather, one batched matmul and a scatter (tpufem
 computes it outside any Pallas kernel).
@@ -115,7 +115,7 @@ class Tet10MGSolver:
         self.N4 = t10.mesh4.num_nodes
         self.conn = torch.as_tensor(t10.tet10, dtype=torch.int32, device=dev)
         # kernel N's blocks; its CSR fields also sum the nodal stress
-        self.plan = force_plan(t10.tet10, self.N10, dev)
+        self.plan = force_plan(t10, dev)
         edges = np.asarray(t10.edge_endpoints, np.int64)  # (M,2)
         self.edges = torch.as_tensor(edges, device=dev)
         self.edge_plans = [csr_plan(edges[:, c], self.N4, dev) for c in (0, 1)]

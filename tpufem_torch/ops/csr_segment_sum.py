@@ -274,7 +274,7 @@ def csr_segment_sum(vals: torch.Tensor, plan: CsrPlan) -> torch.Tensor:
     CsrSegmentSum (the same launch, and a row gather backward). `plan` is read
     by its field names (order, starts, seg, num_segments, starts_host,
     launch), so a tuple that carries a CsrPlan's fields among others
-    (fem.assembly.IncidencePlan) serves as one."""
+    (fem.assembly.IncidencePlan, fem.tet10.ForcePlan10) serves as one."""
     if vals.dim() != 2 or vals.shape[0] != plan.order.shape[0]:
         raise ValueError(f"csr_segment_sum: vals {tuple(vals.shape)} against a plan of "
                          f"{plan.order.shape[0]} rows")

@@ -59,12 +59,12 @@ _SIGNATURES = {
                                                ctypes.c_double, _P],
     "tpufem_stiffness_apply_f64": [_P] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_double,
                                                ctypes.c_double, _P],
-    # (Jinv, vols, tets, pos, btet, bt_start, bnode, starts, x, free or null, y, n_blocks,
-    #  slots, lam, mu, stream)
-    "tpufem_tet10_force_f32": [_P] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_double,
-                                           ctypes.c_double, _P],
-    "tpufem_tet10_force_f64": [_P] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_double,
-                                           ctypes.c_double, _P],
+    # (Jinv, vols, ttet, tstart, dst, inode, istart, irow, hnode, hrow, hslot, cnode, cstart,
+    #  lnode, x, free or null, y, halo, n_blocks, n_halo, rows, closure, lam, mu, stream)
+    "tpufem_tet10_force_tiled_f32": [_P] * 18 + [ctypes.c_int] * 4 + [ctypes.c_double] * 2
+    + [_P],
+    "tpufem_tet10_force_tiled_f64": [_P] * 18 + [ctypes.c_int] * 4 + [ctypes.c_double] * 2
+    + [_P],
     # (g, u, sig, B, NI, NK, NJ, weld_te, lam, mu, stream)
     "tpufem_element_stress_f32": [_P, _P, _P] + [ctypes.c_int] * 5 + [ctypes.c_double,
                                                                       ctypes.c_double, _P],

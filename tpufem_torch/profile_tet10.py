@@ -26,17 +26,21 @@ measure_N(): kernel N against tet10_force_plain at N_SHAPES (the flagship,
 32x40x4, a sharp-TE 16x24x4; one wing, a seeded displacement), f64 and f32,
 masked and unmasked: f64 within 1e-12 of the largest plain entry, f32
 against the f64 result no worse than 2x the plain f32 version, the same
-bits twice, one launch and one device activity per call, event / device
-(repeated, flushed) / plain times, the bound (Jinv, vols, the int32
+bits twice, one count and two launches and device activities per call (its
+tiles, then its halo nodes), event / device (repeated, flushed: both
+launches, and each alone) / plain times, the bound (Jinv, vols, the int32
 connectivity, x and free read once, y written once; l_flops_per_tet() per
-tet, each tet counted once), the plan's overlap, and the library time:
-torch.sparse.mm of the masked operator as one CSR matrix, assembled on the
-card from the same geometry (library_matrix; at the flagship ~0.5G
-element-matrix entries, summed in seconds).
+tet, each tet counted once), the plan's blocks, rows, shared memory and
+halo share, and the library time: torch.sparse.mm of the masked operator as
+one CSR matrix, assembled on the card from the same geometry
+(library_matrix; at the flagship ~0.5G element-matrix entries, summed in
+seconds).
 
 gather_iteration_profile(): the same for the gather engine's f32 CG
 (Tet10MGSolver, --engine gather): kernels N, E and B by name, the line
-solves by their per-call time.
+solves by their per-call time; and the host's share of N: the seconds
+force_plan takes at the flagship, and the host time of one masked f32 apply
+(200 applies queued without a synchronize, the device behind).
 
 iteration_profile(): the flagship CLI's f32 CG (Tet10StencilT at
 DOF1M_TET10, one wing), `iters` iterations after a warm-up: ms per
@@ -57,11 +61,14 @@ OUTSIDE the tolerance) and to its own bits on repeat, and its output is
 compared with the port's bit for bit (its largest difference from the
 port's printed, and from the first compared build's). A build whose sources
 predate the tiled entry points (tpufem_strain_apply10_tiled_*,
-tpufem_restrict_p_tiled_*) is called through its own; kernel N is timed in
-the builds that have it. Each library's ptxas
-registers and spills for L and M are printed.
+tpufem_restrict_p_tiled_*, tpufem_tet10_force_tiled_*) is called through its
+own; kernel N is timed in the builds that have it (a build with N's first
+design, the incidence walk tpufem_tet10_force_*, over the connectivity's
+IncidencePlan). Each library's ptxas registers and spills for L, M and N
+are printed.
 
-Usage: python -m tpufem_torch.profile_tet10 [--out PATH] [--iters N] [--compare LABEL=DIR ...]
+Usage: python -m tpufem_torch.profile_tet10 [--out PATH] [--iters N] [--n_only]
+       [--compare LABEL=DIR ...]
 """
 
 from __future__ import annotations
@@ -116,8 +123,10 @@ DTYPE_NAMES = {torch.float64: "f64", torch.float32: "f32"}
 # kernel M against its plain version, of the largest entry: the weld rows'
 # column sums run in another order
 M_TOL = {torch.float64: 1e-14, torch.float32: 1e-6}
+# the device kernels of each entry, by a part of their names (N: its tiles and halo kernels,
+# or its first design's one)
 KERNEL_NAMES = {"strain_apply10": "strain_apply10_kernel", "prolong_p": "prolong_p_kernel",
-                "restrict_p": "restrict_p_kernel", "tet10_force": "tet10_force_kernel"}
+                "restrict_p": "restrict_p_kernel", "tet10_force": "tet10_force"}
 LETTERS = {"strain_apply10": "L", "prolong_p": "M", "restrict_p": "M", "tet10_force": "N"}
 DESIGNS = {
     "strain_apply10": "cell-owning tiles of TI x TJ cells at full thickness (l_plan), two "
@@ -131,11 +140,15 @@ DESIGNS = {
                   "component (m_plan): the doubled rows staged in shared memory with 16-byte "
                   "loads, a thread per node, weld columns summed in k order after a barrier: "
                   "no atomics",
-    "tet10_force": "kernel D's walk (tet-centric, a block per contiguous node range of the "
-                   "incidence plan, force_plan) with kernel L's tet10 body (DNDXI folded at "
-                   "compile time, nodes gathered in groups of 3/3/2/2), node forces into shared "
-                   "memory at their CSR rows, a thread per node component adds them in the "
-                   "plan's order: one launch per masked apply, no atomics",
+    "tet10_force": "each tet evaluated once: blocks of neighbouring tets (force_plan: tiles "
+                   "of 3 x 3 cells at full thickness at the flagship, a thread per tet), the "
+                   "masked displacements of a block's nodes staged in shared memory, kernel L's "
+                   "tet10 body (DNDXI folded at compile time, nodes in groups of 3/3/2/2, the "
+                   "first design's contractions); the forces on a block's interior nodes into "
+                   "shared memory (up to the 227 KB opt-in), summed per node in order after a "
+                   "barrier; those on halo nodes to a scratch at their rows, summed in order by "
+                   "a second launch, a thread per halo node component: no atomics, the first "
+                   "design's bits",
 }
 # the shapes kernel N runs at in chip_smoke.py's phase 9: the flagship, the
 # modal CLI's grid and a sharp-TE one (one wing each)
@@ -174,10 +187,11 @@ def nbytes(*tensors) -> int:
 
 
 def check_and_time(name, label, fn, plain, tol, nbytes_, flops, dtype, timed=True,
-                   library=None) -> dict:
-    """One kernel entry's checks (raises on a miss: one launch per call, the
+                   library=None, per_call: int = 1) -> dict:
+    """One kernel entry's checks (raises on a miss: one count per call, the
     same bits twice, within tol of the plain result's largest entry) and,
-    with `timed`, its times and bound."""
+    with `timed`, its times (device: the `per_call` launches of each call,
+    which are its only device activities) and bound."""
     counter = {"strain_apply10": ts.strain_apply10, "prolong_p": ts.prolong_p,
                "restrict_p": ts.restrict_p, "tet10_force": tt10.tet10_force}[name]
     before = counter.launches
@@ -197,14 +211,15 @@ def check_and_time(name, label, fn, plain, tol, nbytes_, flops, dtype, timed=Tru
     if timed:
         bound_us, bound_by = bound(nbytes_, flops, dtype)
         r = device_time(fn, KERNEL_NAMES[name], cold=True)
-        if r["launches"] != 1 or r["activities"] != 1:
+        if r["launches"] != per_call or r["activities"] != per_call:
             raise RuntimeError(f"{name} {label}: {r['launches']} launches and "
-                               f"{r['activities']} device activities per call, not 1")
+                               f"{r['activities']} device activities per call, not {per_call}")
+        dev_us, dev_cold = r["device_us"] * per_call, r["device_us_cold"] * per_call
         rec.update(ms=median_event_ms(fn, 7), plain_ms=median_event_ms(plain, 7),
                    bound_us=bound_us, bound_by=bound_by, bytes=nbytes_, flops=flops,
-                   device_us=r["device_us"], device_us_cold=r["device_us_cold"],
-                   activities=r["activities"], share=bound_us / r["device_us_cold"],
-                   share_repeated=bound_us / r["device_us"],
+                   device_us=dev_us, device_us_cold=dev_cold, launches=r["launches"],
+                   activities=r["activities"], share=bound_us / dev_cold,
+                   share_repeated=bound_us / dev_us,
                    library_ms=median_event_ms(library, 7) if library else None,
                    library_device_us=(device_time(library, "")["all_device_us"] if library
                                       else None))
@@ -299,7 +314,7 @@ def measure_M(label, res, B, device, timed=True) -> dict:
 def n_inputs(res: WingMeshResolution, p4, device, seed=2):
     """(Jinv64, vols64, conn, x64, free64, plan, t10) of the wing p4 at res:
     the f64 geometry, a seeded displacement (1e-3 x a normal field), the root
-    mask and the connectivity's incidence plan."""
+    mask and kernel N's plan of the mesh (force_plan)."""
     t10 = tt10.tet10_from_tet4(structured_wing_mesh(*p4, res))
     conn = torch.as_tensor(t10.tet10, dtype=torch.int32, device=device)
     n10 = torch.as_tensor(t10.nodes10(t10.mesh4.nodes), dtype=torch.float64, device=device)
@@ -308,7 +323,7 @@ def n_inputs(res: WingMeshResolution, p4, device, seed=2):
     x = torch.randn((t10.num_nodes, 3), generator=gen, device=device, dtype=torch.float64) * 1e-3
     free = torch.ones_like(x)
     free[torch.as_tensor(tt10.tet10_root_nodes(t10), device=device).long()] = 0.0
-    return Jinv, vols, conn, x, free, tt10.force_plan(t10.tet10, t10.num_nodes, device), t10
+    return Jinv, vols, conn, x, free, tt10.force_plan(t10, device), t10
 
 
 def library_matrix(Jinv, vols, conn, free, lam: float, mu: float,
@@ -367,8 +382,9 @@ def measure_N(label, res, p4, device, timed=True) -> dict:
     operator) and unmasked: {"f64 masked": record, ...}. The f64 error is held
     to 1e-12 of the largest entry of the plain f64 result, the f32 error
     against that f64 result to 2x the plain f32 version's; each record also
-    holds the plan's overlap and blocks, and with `timed` (masked only)
-    torch.sparse.mm of the assembled matrix (library_matrix) on the same x."""
+    holds the plan's numbers (plan_numbers), and with `timed` (masked only)
+    the device time of each of N's two launches alone and torch.sparse.mm of
+    the assembled matrix (library_matrix) on the same x."""
     Jinv64, vols64, conn, x64, free64, plan, _ = n_inputs(res, p4, device)
     T, N = conn.shape[0], x64.shape[0]
     A64 = library_matrix(Jinv64, vols64, conn, free64, LAM, MU) if timed else None
@@ -397,7 +413,12 @@ def measure_N(label, res, p4, device, timed=True) -> dict:
             d = f"{DTYPE_NAMES[dtype]} {'masked' if masked else 'unmasked'}"
             rec = check_and_time("tet10_force", label, fn, plain,
                                  1e-12 if dtype == torch.float64 else 1e-5, moved,
-                                 l_flops_per_tet() * T, dtype, timed, library=lib)
+                                 l_flops_per_tet() * T, dtype, timed, library=lib,
+                                 per_call=1 + (plan.hnode.numel() > 0))
+            if timed and masked:
+                for part in ("tiles", "halo"):
+                    r = device_time(fn, f"tet10_force_{part}", cold=True)
+                    rec[f"{part}_us"], rec[f"{part}_us_cold"] = r["device_us"], r["device_us_cold"]
             if dtype == torch.float32:
                 err = (fn().double() - ref64).abs().max().item()
                 err_plain = (plain().double() - ref64).abs().max().item()
@@ -406,8 +427,19 @@ def measure_N(label, res, p4, device, timed=True) -> dict:
                                        f"f64, more than 2x the plain version's {err_plain:.3e}")
                 rec.update(err_vs_f64=err, plain_err_vs_f64=err_plain)
             out[d] = {**rec, "dtype": d, "grid": list(res.key), "B": 1, "T": T, "N": N,
-                      "overlap": plan.overlap, "blocks": plan.bnode.numel() - 1}
+                      **plan_numbers(plan, dtype)}
     return out
+
+
+def plan_numbers(plan, dtype) -> dict:
+    """Kernel N's plan at a glance: evaluations per tet, blocks, the most
+    interior rows of a block and its shared memory in `dtype`, halo nodes,
+    rows and their share of the entries."""
+    return {"overlap": plan.overlap, "blocks": plan.tstart.numel() - 1, "rows": plan.rows,
+            "closure": plan.closure,
+            "smem_bytes": (plan.rows + plan.closure) * 3 * torch.finfo(dtype).bits // 8,
+            "halo_nodes": plan.hnode.numel(), "halo_rows": plan.halo_rows,
+            "halo_share": plan.halo_share}
 
 
 def line(rec) -> str:
@@ -415,8 +447,11 @@ def line(rec) -> str:
          f"B={rec['B']} {rec['dtype']}: max|err| {rec['max_abs_err']:.3e} (rel "
          f"{rec['rel_err']:.2e}), bitwise repeatable")
     if "overlap" in rec:
-        s += (f"; T={rec['T']} N={rec['N']}, {rec['blocks']} blocks, each tet evaluated "
-              f"{rec['overlap']:.3f} times")
+        s += (f"; T={rec['T']} N={rec['N']}, {rec['blocks']} blocks of at most {rec['rows']} "
+              f"interior rows and {rec['closure']} staged nodes ({rec['smem_bytes']} B of shared "
+              f"memory), each tet evaluated "
+              f"{rec['overlap']:.3f} times, {rec['halo_nodes']} halo nodes with "
+              f"{rec['halo_rows']} rows (halo share {rec['halo_share']:.2%})")
     if "err_vs_f64" in rec:
         s += (f"; f32 err vs f64 {rec['err_vs_f64']:.3e} (plain f32 "
               f"{rec['plain_err_vs_f64']:.3e}, bar 2x)")
@@ -429,6 +464,9 @@ def line(rec) -> str:
               f"repeated, {rec['device_us_cold']:.2f} us L2 flushed; bound "
               f"{rec['bound_us']:.2f} us ({rec['bound_by']}, {rec['bytes'] / 1e6:.1f} MB, "
               f"{rec['flops'] / 1e9:.3f} GFLOP): {rec['share']:.1%} flushed{lib}")
+    if "tiles_us" in rec:
+        s += (f"; alone: tiles {rec['tiles_us']:.2f} us repeated, {rec['tiles_us_cold']:.2f} "
+              f"flushed, halo {rec['halo_us']:.2f} / {rec['halo_us_cold']:.2f}")
     return s
 
 
@@ -528,9 +566,9 @@ def library_record(name, label, lib_label, fn, port, plain, tol, nbytes_, flops,
     plain version (`within_tol`: a measuring variant may drop work), the same
     bits twice, whether it gives
     the port's bits (and its largest difference from them; with `first`,
-    the first compared build's output, from that too), device time repeated
-    and with the L2 flushed, launches and activities per call, and the share
-    of the same bound."""
+    the first compared build's output, from that too), device time per call
+    (all its launches) repeated and with the L2 flushed, launches and
+    activities per call, and the share of the same bound."""
     y = fn().clone()
     again = fn()
     ref, mine = plain(), port()
@@ -538,16 +576,17 @@ def library_record(name, label, lib_label, fn, port, plain, tol, nbytes_, flops,
     scale = ref.abs().max().item()
     err = (y - ref).abs().max().item()
     r = device_time(fn, KERNEL_NAMES[name], cold=True)
+    dev_us, dev_cold = r["device_us"] * r["launches"], r["device_us_cold"] * r["launches"]
     bound_us, bound_by = bound(nbytes_, flops, dtype)
     return {"kernel": name, "library": lib_label, "case": label, "dtype": DTYPE_NAMES[dtype],
             "max_abs_err": err, "rel_err": err / scale, "within_tol": err <= tol * scale,
             "bitwise_repeat": torch.equal(y, again),
             "equals_port": torch.equal(y, mine), "max_diff_port": (y - mine).abs().max().item(),
             "rel_diff_port": (y - mine).abs().max().item() / scale, **vs_first,
-            "device_us": r["device_us"], "device_us_cold": r["device_us_cold"],
+            "device_us": dev_us, "device_us_cold": dev_cold,
             "launches": r["launches"], "activities": r["activities"], "bound_us": bound_us,
-            "bound_by": bound_by, "share": bound_us / r["device_us_cold"],
-            "share_repeated": bound_us / r["device_us"]}
+            "bound_by": bound_by, "share": bound_us / dev_cold,
+            "share_repeated": bound_us / dev_us}
 
 
 def measure_library(label, lib_label, lib, res, p4s, device, firsts: dict) -> list:
@@ -567,26 +606,58 @@ def measure_library(label, lib_label, lib, res, p4s, device, firsts: dict) -> li
     return recs
 
 
+def walk_call(lib, d, ins, conn, plan):
+    """Kernel N's first design (the incidence walk, tpufem_tet10_force_{d})
+    of another build on (J, v, x, free) over its IncidencePlan."""
+    P = ctypes.c_void_p
+    fn = getattr(lib, f"tpufem_tet10_force_{d}")
+    fn.argtypes = [P] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_double, P]
+    fn.restype = ctypes.c_int
+    J, v, x, free = ins
+    y = torch.empty_like(x)
+    ptrs = (J, v, conn, plan.pos, plan.btet, plan.bt_start, plan.bnode, plan.starts, x, free, y)
+
+    def call():
+        check(fn(*(t.data_ptr() for t in ptrs), plan.bnode.numel() - 1, plan.slots, float(LAM),
+                 float(MU), torch.cuda.current_stream().cuda_stream), "tet10_force")
+        return y
+
+    return call
+
+
 def measure_library_N(label, lib_label, lib, res, p4, device, firsts: dict) -> list:
-    """Kernel N of library `lib` (a build with the tpufem_tet10_force_* entry
-    points) at one N_SHAPES entry, masked, f64 and f32 (library_record)."""
-    Jinv64, vols64, conn, x64, free64, plan, _ = n_inputs(res, p4, device)
+    """Kernel N of library `lib` at one N_SHAPES entry, masked, f64 and f32
+    (library_record): through the tile plan's entry points where the build
+    has them, else through the first design's walk over the connectivity's
+    IncidencePlan."""
+    from tpufem_torch.fem.assembly import build_incidence
+
+    Jinv64, vols64, conn, x64, free64, plan, t10 = n_inputs(res, p4, device)
     T, N = conn.shape[0], x64.shape[0]
+    tiled = hasattr(lib, "tpufem_tet10_force_tiled_f64")
+    walk = None if tiled else build_incidence(t10.tet10, N, device)
     recs = []
     for dtype in (torch.float64, torch.float32):
-        J, v, x, free = (t.to(dtype) for t in (Jinv64, vols64, x64, free64))
-        fn = getattr(lib, f"tpufem_tet10_force_{DTYPE_NAMES[dtype]}")
-        y = torch.empty_like(x)
-        ptrs = (J, v, conn, plan.pos, plan.btet, plan.bt_start, plan.bnode, plan.starts, x, free,
-                y)
+        d = DTYPE_NAMES[dtype]
+        ins = tuple(t.to(dtype) for t in (Jinv64, vols64, x64, free64))
+        J, v, x, free = ins
+        if tiled:
+            fn = getattr(lib, f"tpufem_tet10_force_tiled_{d}")
+            y = torch.empty_like(x)
+            halo = torch.empty(3 * plan.halo_rows, dtype=dtype, device=device)
 
-        def call(fn=fn, ptrs=ptrs, y=y):
-            check(fn(*(t.data_ptr() for t in ptrs), plan.bnode.numel() - 1, plan.slots,
-                     float(LAM), float(MU), torch.cuda.current_stream().cuda_stream),
-                  "tet10_force")
-            return y
+            def call(fn=fn, J=J, v=v, x=x, free=free, y=y, halo=halo):
+                check(fn(J.data_ptr(), v.data_ptr(), *plan.args[:12], x.data_ptr(),
+                         free.data_ptr(), y.data_ptr(), halo.data_ptr(), *plan.args[12:],
+                         float(LAM), float(MU), torch.cuda.current_stream().cuda_stream),
+                      "tet10_force")
+                return y
 
-        key = ("tet10_force", DTYPE_NAMES[dtype])
+            numbers = plan_numbers(plan, dtype)
+        else:
+            call = walk_call(lib, d, ins, conn, walk)
+            numbers = {"overlap": walk.overlap, "blocks": walk.bnode.numel() - 1}
+        key = ("tet10_force", d)
         if key not in firsts:
             firsts[key] = call().clone()
         rec = library_record(
@@ -597,7 +668,7 @@ def measure_library_N(label, lib_label, lib, res, p4, device, firsts: dict) -> l
                                                                     plan, free),
             1e-12 if dtype == torch.float64 else 1e-5, nbytes(J, v, conn, x, free, x),
             l_flops_per_tet() * T, dtype, firsts[key])
-        recs.append({**rec, "grid": list(res.key), "B": 1})
+        recs.append({**rec, "grid": list(res.key), "B": 1, **numbers})
     return recs
 
 
@@ -605,17 +676,19 @@ def library_line(rec) -> str:
     first = (f", from the first compared build's {rec['max_diff_first']:.3e}"
              if "max_diff_first" in rec else "")
     held = "" if rec["within_tol"] else " OUTSIDE the tolerance"
+    plan = (f"; {rec['blocks']} blocks, each tet evaluated {rec['overlap']:.3f} times"
+            if "overlap" in rec else "")
     return (f"[compare {rec['library']}] {rec['kernel']} {rec['case']} {rec['dtype']}: rel err "
             f"{rec['rel_err']:.2e}{held}, bitwise repeat {rec['bitwise_repeat']}, the port's bits "
             f"{rec['equals_port']} (largest difference {rec['max_diff_port']:.3e}, rel "
             f"{rec['rel_diff_port']:.2e}{first}); device {rec['device_us']:.2f} us repeated, "
             f"{rec['device_us_cold']:.2f} us L2 flushed, {rec['launches']:.0f} launch and "
             f"{rec['activities']:.0f} activity per call; bound {rec['bound_us']:.2f} us: "
-            f"{rec['share']:.1%} flushed")
+            f"{rec['share']:.1%} flushed{plan}")
 
 
 def ptxas_line(label, log) -> str:
-    """The registers and spills ptxas reported for kernels L and M of one build."""
+    """The registers and spills ptxas reported for kernels L, M and N of one build."""
     rep = {k: v for k, v in ptxas_report(log).items()
            if any(n in k for n in KERNEL_NAMES.values())}
     return (f"[ptxas {label}] " + "; ".join(f"{k}: {r} registers, {ss} / {sl} B spilled"
@@ -705,6 +778,9 @@ def gather_iteration_profile(device, iters: int = 40) -> dict:
     mesh = structured_wing_mesh(*FLAGSHIP_P4, DOF1M_TET10)
     t10 = tet10_from_tet4(mesh)
     solver = tm.Tet10MGSolver(DOF1M_TET10, t10, device=device)
+    t0 = time.perf_counter()
+    tt10.force_plan(t10, device)  # what the solver built: its seconds alone
+    plan_s = time.perf_counter() - t0
     ut6 = tt10.tet10_upper_t6(t10, build_boundary_sets(mesh).surf_upper_faces)
     lam, mu = (float(torch.tensor(v, dtype=torch.float32)) for v in (LAM, MU))
     n10 = torch.as_tensor(t10.nodes10(mesh.nodes), dtype=torch.float32, device=device)
@@ -722,6 +798,11 @@ def gather_iteration_profile(device, iters: int = 40) -> dict:
     run = lambda: _cg_grid_run(A, M, tm._dot64, cg, 0.0, iters)  # noqa: E731  (tol 0: never stops)
     run()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):  # 400 launches: within the launch queue, so the host never waits
+        A(b)
+    apply_host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     counters = {"N": tt10.tet10_force, "E": cs.csr_segment_sum, "B": st.strain_apply}
     before = {k: c.launches for k, c in counters.items()}
@@ -737,14 +818,15 @@ def gather_iteration_profile(device, iters: int = 40) -> dict:
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in dev) / iters
-    named = {"N tet10_force": "tet10_force_kernel", "E csr_segment_sum": "csr_segment_sum",
+    named = {"N tet10_force": "tet10_force", "E csr_segment_sum": "csr_segment_sum",
              "B strain_apply": "strain_apply_kernel"}
     shares = {k: sum(e.time_range.elapsed_us() for e in dev if n in e.name) / iters
               for k, n in named.items()}
     shares["line solves"] = 4 * device_time(lambda: solver._line_apply(Binv, b),
                                             "")["all_device_us"]
     return {"case": "gather flagship f32 CG iteration", "grid": list(DOF1M_TET10.key), "B": 1,
-            "setup_s": setup_s, "setup_peak_bytes": setup_peak, "iters": iters,
+            "plan_s": plan_s, "apply_host_us": apply_host_us, "setup_s": setup_s,
+            "setup_peak_bytes": setup_peak, "iters": iters,
             "ms_per_iter": start.elapsed_time(end) / iters,
             "wall_ms_per_iter": wall / iters * 1e3, "busy_us_per_iter": busy_us,
             "busy_share_of_wall": busy_us / (wall / iters * 1e6),
@@ -756,8 +838,9 @@ def gather_iteration_profile(device, iters: int = 40) -> dict:
 def iteration_line(r) -> str:
     parts = "; ".join(f"{k} {v:.1f} us ({r['share_of_busy'][k]:.1%})"
                       for k, v in r["device_us_per_iter"].items())
-    setup = (f"setup {r['setup_s']:.3f} s, peak device memory {r['setup_peak_bytes']} B above "
-             f"the solver's own; " if "setup_s" in r else "")
+    setup = (f"force_plan {r['plan_s']:.3f} s, N's host time {r['apply_host_us']:.1f} us an "
+             f"apply; setup {r['setup_s']:.3f} s, peak device memory {r['setup_peak_bytes']} B "
+             f"above the solver's own; " if "setup_s" in r else "")
     return (f"[tet10 CG] {r['case']} {r['grid']} B=1, {setup}{r['iters']} iterations: "
             f"{r['ms_per_iter']:.3f} ms "
             f"per iteration (events), device busy {r['busy_us_per_iter']:.1f} us "
@@ -770,9 +853,11 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="file for the results as JSON lines")
     ap.add_argument("--iters", type=int, default=40, help="CG iterations profiled")
     ap.add_argument("--compare", nargs="*", default=[], metavar="LABEL=DIR",
-                    help="also time kernels L and M as built from each csrc/ DIR (another "
+                    help="also time kernels L, M and N as built from each csrc/ DIR (another "
                          "commit's, or an edited copy), before and after the port's own, at "
                          "every shape")
+    ap.add_argument("--n_only", action="store_true",
+                    help="kernel N alone: its shapes and the gather CG's profile")
     args = ap.parse_args(argv)
     parse_compare_specs(args.compare)  # a malformed spec raises before anything is built
     if not torch.cuda.is_available():
@@ -785,7 +870,7 @@ def main(argv=None) -> int:
     for lab, lib in libs.items():
         print(ptxas_line(lab, lib.build_info.get("log", "")), flush=True)
     rows = []
-    for label, (res, p4s) in SHAPES.items():
+    for label, (res, p4s) in ({} if args.n_only else SHAPES).items():
         firsts = {}
         # in turns: the compared builds, the port's kernels, the compared builds again
         for turn, order in ((0, list(libs.items())), (1, list(reversed(libs.items())))):
@@ -800,7 +885,8 @@ def main(argv=None) -> int:
                     rows.append({**rec, "turn": turn})
     for label, (res, p4) in N_SHAPES.items():
         firsts = {}
-        has_n = [(lab, lib) for lab, lib in libs.items() if hasattr(lib, "tpufem_tet10_force_f64")]
+        has_n = [(lab, lib) for lab, lib in libs.items()
+                 if any(hasattr(lib, f"tpufem_tet10_force{t}_f64") for t in ("", "_tiled"))]
         for turn, order in ((0, has_n), (1, list(reversed(has_n)))):
             if turn:
                 for rec in measure_N(label, res, p4, dev).values():
@@ -810,7 +896,8 @@ def main(argv=None) -> int:
                 for rec in measure_library_N(label, lab, lib, res, p4, dev, firsts):
                     print(library_line(rec), flush=True)
                     rows.append({**rec, "turn": turn})
-    for profile_fn in (iteration_profile, gather_iteration_profile):
+    for profile_fn in (gather_iteration_profile,) if args.n_only else (
+            iteration_profile, gather_iteration_profile):
         r = profile_fn(dev, args.iters)
         print(iteration_line(r), flush=True)
         rows.append(r)

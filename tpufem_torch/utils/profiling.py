@@ -61,6 +61,7 @@ def median_event_ms(fn, runs: int = 21) -> float:
 
 L2_FLUSH_BYTES = 256 * 2**20  # five times the H100's 50 MB L2
 _HEAD_S = 0.01  # the head of a profiler window, whose device records may be lost
+_WINDOWS = 8  # windows taken before device_time gives up, each with twice the last's head
 
 
 def whole_window(events, dev, n_kern: int, t0: float, reps: int, cold: bool) -> bool:
@@ -98,18 +99,20 @@ def device_time(fn, kernel: str, reps: int = 20, cold: bool = False) -> dict:
     _HEAD_S seconds of calls that are not counted, then a synchronize, and only
     the device records that start after that synchronize returned are read.
     The tracer can come up later still, past the head and into the counted
-    calls, so a window is taken again (at most four times) unless it is
-    whole (whole_window). Raises if no window was whole, or if the window saw
-    no such kernel."""
+    calls, so a window is taken again, with twice the head (at most
+    _WINDOWS windows), unless it is whole (whole_window). The result's
+    "windows" counts the windows taken, and a reading that took more than one
+    says so on stdout. Raises if no window was whole, or if the window saw no
+    such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda") if cold else None
     fn()
     torch.cuda.synchronize()
-    for _ in range(5):
+    for attempt in range(_WINDOWS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            head_ends = time.perf_counter() + _HEAD_S
+            head_ends = time.perf_counter() + _HEAD_S * 2**attempt
             while time.perf_counter() < head_ends:
                 fn()
             torch.cuda.synchronize()
@@ -136,13 +139,16 @@ def device_time(fn, kernel: str, reps: int = 20, cold: bool = False) -> dict:
         if dev and whole_window(events, dev, len(kern), min(syncs), reps, cold):
             break
     else:
-        raise RuntimeError(f"five profiler windows in a row lost device records: the last "
+        raise RuntimeError(f"{_WINDOWS} profiler windows in a row lost device records: the last "
                            f"held {len(dev)} activities, {len(kern)} of *{kernel}*, for {reps} "
                            f"calls")
     if not kern:
         raise RuntimeError(f"the profiler saw no kernel named *{kernel}* among "
                            f"{sorted({e.name for e in dev})}")
-    out = {}
+    if attempt:
+        print(f"[device_time] *{kernel}*: whole in window {attempt + 1} of {_WINDOWS}",
+              flush=True)
+    out = {"windows": attempt + 1}
     if cold:  # the window's second half: the same activities and one overwrite per call
         half = len(kern) // 2
         out["device_us_cold"] = sum(kern[half:]) / (len(kern) - half)
