@@ -147,7 +147,14 @@ trained checkpoint exists). Along the way:
      information); (i) solve_tet10_case (line + RBM two-level) and
      Tet10MGSolver, f64, tol 1e-9, at tpufem's test grid 16x16x4: u within
      1e-7 and the p-MG in fewer iterations; kernel N launched;
- 10. prints the wall time of every phase, the peak device memory of the
+ 10. the library yardsticks (tpufem_torch/profile_library.py): for kernels
+     B, D, F, G, I and K, each linear at fixed state, torch.sparse.mm of the
+     kernel's matrix assembled on the card (probed through the plain
+     version, or summed from D's element matrices), held to the plain
+     version to 1e-12 (f64), timed beside the kernel at the shape that heads
+     the kernel's entry: its `library_ms` and `library`; H and J, nonlinear
+     in u, say so in `library_note`;
+ 11. prints the wall time of every phase, the peak device memory of the
      phase-3 solve, the training phase, the gather solve, the dynamics, the
      design, the tet10 phase and its gather part, the kernels' JSON line,
      then {"ok": true, "device": {...}}.
@@ -155,9 +162,9 @@ trained checkpoint exists). Along the way:
 Every phase raises on failure; the script then exits nonzero and prints no
 result. Usage: python3 chip_smoke.py   (one card, no arguments)
 
-Its phases took 320-359 s (phase 6: 30-40 s with kernel E at every plan,
-phase 7: 35-47 s, phase 8: 82-98 s, phase 9: 98-100 s with the gather
-engine) on an NVIDIA H100 80GB HBM3 at 700 W.
+Its phases took 309-359 s (phase 6: 30-40 s with kernel E at every plan,
+phase 7: 35-47 s, phase 8: 80-98 s, phase 9: 91-100 s with the gather
+engine, phase 10: 16 s) on an NVIDIA H100 80GB HBM3 at 700 W.
 """
 
 from __future__ import annotations
@@ -429,6 +436,9 @@ def main() -> int:
     e = next(k for k in kernels if k["name"] == "csr_segment_sum")
     e["tet10_launches"] = state["tet10_csr"]["launches"]
     e["shapes"].update(state["tet10_csr"]["shapes"])
+    t0 = time.perf_counter()
+    run_library_yardsticks(dev, kernels)
+    walls["10 library yardsticks"] = time.perf_counter() - t0
     print(json.dumps({"phase_wall_s": walls}))
     print(json.dumps({"peak_device_memory_bytes": state["peak_bytes"]}))
     print(json.dumps({"kernels": kernels}))
@@ -436,6 +446,28 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+# kernel letter in profile_library.CASES -> its name in the kernels' line
+LIBRARY_KERNELS = {"B": "strain_apply", "D": "stiffness_apply", "F": "element_stress",
+                   "G": "geom_apply", "I": "stvk_tangent_apply", "K": "strain_apply_geo_vjp"}
+
+
+def run_library_yardsticks(dev, kernels):
+    """Phase 10: each linear kernel's torch.sparse.mm yardstick
+    (profile_library.library_record raises unless the assembled matrix gives
+    the plain version's result to 1e-12), into the kernels' line."""
+    from tpufem_torch.profile_library import CASES, library_record, line
+
+    by_name = {k["name"]: k for k in kernels}
+    for letter, name in LIBRARY_KERNELS.items():
+        rec = library_record(CASES[letter](dev))
+        print(line(letter, rec))
+        by_name[name]["library_ms"] = rec["library_ms"]
+        by_name[name]["library"] = rec
+        torch.cuda.empty_cache()
+    for name in ("stvk_internal_force", "stvk_energy"):
+        by_name[name]["library_note"] = "none: nonlinear in u, no one PyTorch call computes it"
 
 
 def run(dev, res, batch):
@@ -563,7 +595,8 @@ def run(dev, res, batch):
     print(f"[solve] physics: tip u_z < 0 and root-band vM > 3x tip-band vM in all {batch} cases")
 
     # ---- 4. surrogate checks
-    model_cpu = GraphSAGE(SAGEConfig(), generator=torch.Generator().manual_seed(0)).eval()
+    model_cpu = GraphSAGE(SAGEConfig(), generator=torch.Generator().manual_seed(0),
+                          device="cpu").eval()
     for k, (g, pred) in enumerate(zip(graphs, preds)):
         require(pred.shape == (g.num_nodes,) and np.isfinite(pred).all(), f"case {k}: bad pred")
         with torch.no_grad():

@@ -1,9 +1,10 @@
 // A CPU stand-in for the parts of the CUDA runtime that tpufem_torch/csrc's
 // kernels use, so that their sources compile with g++ and run on the host:
 // each block's threads run as std::threads (__syncthreads a barrier among
-// them, __shared__ one copy per kernel, the dynamic shared memory one buffer
-// filled with NaN bytes before each block), the blocks one after another in
-// a seeded shuffled order, so that a schedule's order never decides a result.
+// them, __shfl_sync one among the lanes its mask names, __shared__ one copy
+// per kernel, the dynamic shared memory one buffer filled with NaN bytes
+// before each block), the blocks one after another in a seeded shuffled
+// order, so that a schedule's order never decides a result.
 // Device loads and stores, fences and atomics are plain host operations; the
 // rounding intrinsics (__fma_rn) are std::fma.
 // tests/test_torch_tet10_kernels_host.py rewrites each `kernel<<<grid, block,
@@ -17,6 +18,8 @@
 #include <cstdint>
 #include <cstring>
 #include <functional>
+#include <map>
+#include <memory>
 #include <mutex>
 #include <random>
 #include <thread>
@@ -41,6 +44,7 @@ struct dim3 {
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 gridDim, blockDim;
 struct alignas(16) float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct alignas(16) double2 { double x, y; };
 struct alignas(16) int4 { int x, y, z, w; };
 typedef void* cudaStream_t;
@@ -89,6 +93,37 @@ struct EmuBarrier {
 };
 inline EmuBarrier* emu_barrier = nullptr;
 inline void __syncthreads() { emu_barrier->wait(); }
+
+// The lanes a shuffle's mask names (a warp, or an aligned group of its lanes)
+// meet at a barrier of their own to exchange values: every lane the mask
+// names calls it, the same number of times (the sources keep a group's
+// control flow uniform around a shuffle).
+struct EmuWarp {
+  std::mutex m;
+  std::map<unsigned, std::unique_ptr<EmuBarrier>> bars;  // by mask
+  long long slot[32];
+  EmuBarrier& group(unsigned mask) {
+    std::lock_guard<std::mutex> l(m);
+    auto& b = bars[mask];
+    if (!b) b.reset(new EmuBarrier(__builtin_popcount(mask)));
+    return *b;
+  }
+};
+inline thread_local EmuWarp* emu_warp = nullptr;
+inline thread_local int emu_lane = 0;
+template <class T>
+T __shfl_sync(unsigned mask, T v, int src, int width = 32) {
+  static_assert(sizeof(T) <= sizeof(long long), "a shuffle moves at most 8 bytes");
+  EmuBarrier& bar = emu_warp->group(mask);
+  long long bits = 0;
+  std::memcpy(&bits, &v, sizeof(T));
+  emu_warp->slot[emu_lane] = bits;
+  bar.wait();
+  bits = emu_warp->slot[(emu_lane & ~(width - 1)) + (src & (width - 1))];
+  bar.wait();
+  std::memcpy(&v, &bits, sizeof(T));
+  return v;
+}
 alignas(16) inline unsigned char emu_smem[256 * 1024];
 inline unsigned emu_seed = 1;
 
@@ -105,11 +140,15 @@ inline void emu_launch(dim3 grid, int threads, const std::function<void()>& body
     std::memset(emu_smem, 0xff, sizeof(emu_smem));  // NaN where a kernel reads what it never wrote
     EmuBarrier bar(threads);
     emu_barrier = &bar;
+    std::vector<std::unique_ptr<EmuWarp>> warps;
+    for (int t = 0; t < threads; t += 32) warps.emplace_back(new EmuWarp());
     std::vector<std::thread> ts;
     for (int t = 0; t < threads; ++t)
       ts.emplace_back([&, t] {
         threadIdx = dim3(t);
         blockIdx = b;
+        emu_warp = warps[t / 32].get();
+        emu_lane = t % 32;
         body();
       });
     for (auto& th : ts) th.join();

@@ -267,4 +267,4 @@ def test_unknown_aggregate_impl_raises():
     from tpufem_torch.models.sage import GraphSAGE
 
     with pytest.raises(ValueError, match="aggregate_impl"):
-        GraphSAGE(SAGEConfig(aggregate_impl="xla"))
+        GraphSAGE(SAGEConfig(aggregate_impl="xla"), device="cpu")

@@ -195,6 +195,37 @@ def test_gather_row_sum_without_weights(cuda):
     assert (out.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("C", [1, 3, 8, 128, 300])
+def test_gather_row_sum_kernel_at_the_host_regimes(cuda, C, offset):
+    """Kernel A entry (b) over the row-pointer kernel's pointers at the regimes
+    of tests/test_torch_segment_sum_host.py (isolated nodes, dump rows, short
+    segments, a segment longer than a warp's rows, one huge segment, no
+    rows), under weights, unit weights, rowdiv and normalize: the pointers
+    equal to the plain version's, the sums within 1e-5 of the plain f64
+    version, twice the same bits."""
+    from test_torch_segment_sum_host import MODES, REGIMES, case_inputs, mode_args
+
+    for regime in REGIMES:
+        rng = np.random.default_rng(C + 10 * REGIMES.index(regime))
+        x, idx, w, seg, N, rowdiv = case_inputs(regime, C, offset, rng)
+        idx, w, seg, rowdiv = (t.to(cuda) for t in (idx, w, seg, rowdiv))
+        x = _rows(rng, tuple(x.shape), cuda, offset)
+        rowptr = tgs.segment_rowptr(seg, N)
+        assert torch.equal(rowptr, tgs.segment_rowptr_plain(seg, N)), regime
+        for mode in MODES:
+            wm, rd, normalize = mode_args(mode, w, rowdiv)
+            out, deg = tgs.gather_row_sum(x, idx, wm, rowptr, rd, normalize)
+            again = tgs.gather_row_sum(x, idx, wm, rowptr, rd, normalize)
+            assert torch.equal(out, again[0]) and torch.equal(deg, again[1]), (regime, mode)
+            dbl = [None if a is None else a.double() for a in (x, wm, rd)]
+            ref, ref_deg = tgs.gather_row_sum_plain(dbl[0], idx, dbl[1], rowptr, dbl[2],
+                                                    normalize)
+            scale = max(ref.abs().max().item(), 1.0)
+            assert (out.double() - ref).abs().max().item() <= 1e-5 * scale, (regime, mode)
+            assert torch.allclose(deg.double(), ref_deg, rtol=1e-6, atol=1e-6), (regime, mode)
+
+
 AGGREGATES = {"segment": tgs.segment_mean_aggregate, "pallas": tgs.gather_mean_aggregate}
 
 

@@ -34,7 +34,7 @@ def flax_model():
 def test_flax_to_state_dict_covers_every_parameter(flax_model):
     _, params, *_ = flax_model
     sd = flax_to_state_dict(jax.tree_util.tree_map(np.asarray, params))
-    model = GraphSAGE(SAGEConfig(**CFG))
+    model = GraphSAGE(SAGEConfig(**CFG), device="cpu")
     assert set(sd) == set(model.state_dict())
     for k, v in model.state_dict().items():
         assert sd[k].shape == v.shape, k
@@ -47,7 +47,7 @@ def test_flax_to_state_dict_covers_every_parameter(flax_model):
 def test_forward_matches_flax(flax_model):
     model_a, params, x, ei, em = flax_model
     ref = np.asarray(model_a.apply(params, jnp.asarray(x), jnp.asarray(ei), jnp.asarray(em)))
-    model = GraphSAGE(SAGEConfig(**CFG))
+    model = GraphSAGE(SAGEConfig(**CFG), device="cpu")
     model.load_state_dict(flax_to_state_dict(jax.tree_util.tree_map(np.asarray, params)))
     model.eval()
     with torch.no_grad():
@@ -64,7 +64,7 @@ def test_forward_matches_flax_under_both_impls(flax_model, impl):
     _, params, x, ei, em = flax_model
     ref = np.asarray(FlaxSAGE(FlaxConfig(**CFG, aggregate_impl=impl)).apply(
         params, jnp.asarray(x), jnp.asarray(ei), jnp.asarray(em)))
-    model = GraphSAGE(SAGEConfig(**CFG, aggregate_impl=impl))
+    model = GraphSAGE(SAGEConfig(**CFG, aggregate_impl=impl), device="cpu")
     model.load_state_dict(flax_to_state_dict(jax.tree_util.tree_map(np.asarray, params)))
     model.eval()
     with torch.no_grad():
@@ -79,7 +79,8 @@ def test_the_two_impls_agree_and_share_checkpoints(flax_model):
     sd = flax_to_state_dict(jax.tree_util.tree_map(np.asarray, params))
     outs, grads = {}, {}
     for impl in ("segment", "pallas"):
-        model = GraphSAGE(SAGEConfig(**CFG, dropout=0.0, aggregate_impl=impl)).train()
+        model = GraphSAGE(SAGEConfig(**CFG, dropout=0.0, aggregate_impl=impl),
+                          device="cpu").train()
         model.load_state_dict(sd)
         out = model(torch.as_tensor(x), torch.as_tensor(ei), torch.as_tensor(em))
         (out * out).mean().backward()
@@ -100,7 +101,7 @@ def test_forward_plans_the_graph_once(flax_model, monkeypatch):
     orig = tsage.aggregation_plan
     monkeypatch.setattr(tsage, "aggregation_plan", lambda *a: calls.append(1) or orig(*a))
     for impl in ("segment", "pallas"):
-        model = GraphSAGE(SAGEConfig(**CFG, aggregate_impl=impl)).eval()
+        model = GraphSAGE(SAGEConfig(**CFG, aggregate_impl=impl), device="cpu").eval()
         with torch.no_grad():
             model(torch.as_tensor(x), torch.as_tensor(ei), torch.as_tensor(em))
     assert len(calls) == 2
@@ -111,7 +112,9 @@ def test_config_round_trip_and_seeded_init():
         cfg = SAGEConfig(aggregate_impl=impl)
         assert SAGEConfig.from_json_dict(cfg.to_json_dict()) == cfg
         assert cfg.to_json_dict() == FlaxConfig(aggregate_impl=impl).to_json_dict()
-    a = GraphSAGE(SAGEConfig(**CFG), generator=torch.Generator().manual_seed(7))
-    b = GraphSAGE(SAGEConfig(**CFG), generator=torch.Generator().manual_seed(7))
+    a = GraphSAGE(SAGEConfig(**CFG), generator=torch.Generator().manual_seed(7),
+                  device="cpu")
+    b = GraphSAGE(SAGEConfig(**CFG), generator=torch.Generator().manual_seed(7),
+                  device="cpu")
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)

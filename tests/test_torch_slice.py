@@ -130,7 +130,7 @@ def test_surface_graph_and_surrogate_match(solved):
     args = (jnp.asarray(g.x), jnp.asarray(g.edge_index), jnp.asarray(g.edge_mask))
     params = flax_model.init(jax.random.PRNGKey(0), *args)
     ref = np.asarray(jax.jit(flax_model.apply)(params, *args))
-    model = GraphSAGE()
+    model = GraphSAGE(device="cpu")
     model.load_state_dict(flax_to_state_dict(jax.tree_util.tree_map(np.asarray, params)))
     model.eval()
     with torch.no_grad():

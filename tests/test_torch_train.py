@@ -131,7 +131,7 @@ def test_loss_and_gradients_match_tpufem(impl):
     loss_j, grads_j = jax.value_and_grad(jtr._loss_fn)(
         params, stack_graphs(jgraphs), jax.random.PRNGKey(1))
 
-    model = GraphSAGE(SAGEConfig(**SMALL, dropout=0.0, aggregate_impl=impl))
+    model = GraphSAGE(SAGEConfig(**SMALL, dropout=0.0, aggregate_impl=impl), device="cpu")
     model.load_state_dict(flax_to_state_dict(to_np(params)))
     model.train()
     loss = Trainer._loss_fn(model, GraphSet(tgraphs, "cpu").batch(range(3)))
@@ -157,7 +157,7 @@ def test_optimizer_matches_optax():
     tr = Trainer(TrainConfig(**cfg_kw, model=SAGEConfig(**SMALL)), device="cpu")
     model, opt = tr.init()
     model.load_state_dict(flax_to_state_dict(to_np(params)))
-    ema = GraphSAGE(SAGEConfig(**SMALL))
+    ema = GraphSAGE(SAGEConfig(**SMALL), device="cpu")
     ema.load_state_dict(model.state_dict())
 
     rng = np.random.default_rng(3)
@@ -238,7 +238,8 @@ def test_checkpoint_roundtrip(tmp_path):
 def test_merged_batch_equals_per_graph_losses():
     """The merged disjoint graph gives each graph the loss it has alone."""
     graphs = padded_graphs(build_graph, pad_graph, range(3))
-    model = GraphSAGE(SAGEConfig(**SMALL), generator=torch.Generator().manual_seed(0)).eval()
+    model = GraphSAGE(SAGEConfig(**SMALL), generator=torch.Generator().manual_seed(0),
+                      device="cpu").eval()
     gset = GraphSet(graphs, "cpu")
     with torch.no_grad():
         merged = float(Trainer._loss_fn(model, gset.batch([2, 0, 1])))

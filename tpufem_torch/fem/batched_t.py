@@ -12,6 +12,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpufem_torch.device import resolve_device
 from tpufem_torch.mesher import WingMeshResolution, structured_wing_mesh, wing_topology
 from tpufem_torch.ops.csr_segment_sum import csr_plan, csr_segment_sum
 from tpufem_torch.sets import build_boundary_sets
@@ -49,12 +50,13 @@ def _cross(u, v):
 
 
 class WingBatchT:
-    """Fixed-topology wing data at one resolution, on `device`."""
+    """Fixed-topology wing data at one resolution, on `device`: the card
+    unless the caller asks for the CPU (no CUDA device there: raises)."""
 
-    def __init__(self, res: WingMeshResolution, device="cpu"):
+    def __init__(self, res: WingMeshResolution, device="cuda"):
+        self.device = resolve_device(device)
         topo = wing_topology(res)
         self.res = res
-        self.device = torch.device(device)
         self.num_nodes = topo.num_nodes
         self.te_floor = topo.te_floor
         self.basis64 = torch.as_tensor(topo.node_basis, dtype=torch.float64, device=self.device)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpufem_torch.device import resolve_device
 from tpufem_torch.ops.gather_scatter import (
     AggregationPlan,
     aggregation_plan,
@@ -90,11 +91,13 @@ class GraphSAGE(nn.Module):
 
     With a torch.Generator the weights are drawn from it (normal, fan-in
     scaled, zero biases) on the CPU, so a seed gives the same model on any
-    device; the module is then moved to `device`.
+    device; the module is then moved to `device`, the card unless the caller
+    asks for the CPU (no CUDA device there: raises).
     """
 
-    def __init__(self, config: SAGEConfig | None = None, *, generator=None, device="cpu"):
+    def __init__(self, config: SAGEConfig | None = None, *, generator=None, device="cuda"):
         super().__init__()
+        device = resolve_device(device)
         cfg = config or SAGEConfig()
         self.config = cfg
         self.enc1 = nn.Linear(cfg.in_dim, cfg.encoder_hidden)

@@ -21,9 +21,19 @@ once, over the card's memory rate). The share of the bound is by the flushed
 device time: the repeated calls' time is beside it, and passes the bound
 where the operands stay in the L2 between calls. Entry (b)'s second bound
 counts the gathered rows, E x C x 4 bytes, as if every one missed the cache.
-Then the full-width GraphSAGE forward under both ``aggregate_impl`` values.
+Then the full-width GraphSAGE forward under both ``aggregate_impl`` values,
+and the row-pointer launches of a forward and of a training step's forward
+and backward under each.
 
-Usage: python -m tpufem_torch.profile_aggregation [--out PATH]
+--compare LABEL=DIR ...: entry (b) as built from another csrc/ (the parent
+commit's, unpacked with `git archive <rev> tpufem_torch/csrc | tar -x -C
+build/parent`, or an edited copy of the port's), each a library of its own
+(ops/kernels.py::compare_libraries), at its three forms and every batch,
+over the same row pointers, timed the same way in turns (the compared
+builds, the port's, the compared builds again), each held to the port's
+bits; each build's ptxas registers of the segment-sum kernels.
+
+Usage: python -m tpufem_torch.profile_aggregation [--out PATH] [--compare LABEL=DIR ...]
 """
 
 from __future__ import annotations
@@ -36,6 +46,14 @@ import torch
 
 from tpufem_torch.device import HBM_BYTES_PER_S
 from tpufem_torch.ops import gather_scatter as gs
+from tpufem_torch.ops.kernels import (
+    build_info,
+    check,
+    compare_libraries,
+    load_kernels,
+    parse_compare_specs,
+    ptxas_report,
+)
 from tpufem_torch.utils.profiling import device_time, median_event_ms
 
 WIDTH = 128
@@ -69,11 +87,14 @@ def _rel_err(out, ref) -> tuple[float, float]:
     return (out.double() - ref).abs().max().item(), ref.abs().max().item()
 
 
-def measure_entries(edge_index, edge_mask, num_nodes: int, seed: int = 1, tol: float = 1e-5):
+def measure_entries(edge_index, edge_mask, num_nodes: int, seed: int = 1, tol: float = 1e-5,
+                    libs=None):
     """Every entry on one graph (edge_index (2,E) int32, edge_mask (E,) on the
     card): checked against its plain version (raises on a disagreement above
     `tol` relative, or on two runs that differ), then timed. Returns
-    {entry: numbers}."""
+    {entry: numbers}; with `libs` ({label: library}, compare_libraries),
+    entry (b)'s forms of those builds too ("b forward [label]", ...;
+    compare_b)."""
     dev = edge_mask.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     N, E = num_nodes, edge_mask.shape[0]
@@ -169,6 +190,11 @@ def measure_entries(edge_index, edge_mask, num_nodes: int, seed: int = 1, tol: f
         lambda: gs.gather_row_sum_plain(ge, t.perm, None, t.rowptr),
         lambda: torch.sparse.mm(csr_p, ge),
         _nbytes(ge[:kept], t.perm[:kept], t.rowptr, grad, deg_u), max_abs_err=err, scale=scale)
+    if libs:
+        forms = {"b forward": (h, plan.src, plan.w, plan.rowptr, None, True),
+                 "b backward": (g, t.dst, t.w, t.rowptr, deg, False),
+                 "b unit weights": (ge, t.perm, None, t.rowptr, None, False)}
+        out.update(compare_b(forms, out, libs))
 
     # kernel C: the cotangent's rows by sorted id
     rows = gs.segment_gather(g, plan.seg, N)
@@ -183,6 +209,85 @@ def measure_entries(edge_index, edge_mask, num_nodes: int, seed: int = 1, tol: f
                       max_abs_err=0.0)
     for v in out.values():
         v.update(N=N, E=E, kept_edges=kept)
+    return out
+
+
+def library_b(lib, form):
+    """Entry (b) of another build on one form (gather_row_sum's arguments x,
+    idx, w, rowptr, rowdiv, normalize). Returns the call, which returns (sums,
+    deg)."""
+    x, idx, w, rowptr, rowdiv, normalize = form
+    N = rowptr.shape[0] - 1
+    out = torch.empty((N, x.shape[1]), dtype=x.dtype, device=x.device)
+    deg = torch.empty(N, dtype=x.dtype, device=x.device)
+    args = (*(None if t is None else t.data_ptr() for t in (x, idx, w, rowdiv, rowptr)),
+            out.data_ptr(), deg.data_ptr(), x.shape[0], x.shape[1], N, int(normalize))
+
+    def call():
+        check(lib.tpufem_gather_row_sum_f32(*args, torch.cuda.current_stream().cuda_stream),
+              "gather_row_sum")
+        return out, deg
+
+    return call
+
+
+def _timed(call) -> dict:
+    dt = device_time(call, "row_sum_kernel", cold=True)
+    return {"ms": median_event_ms(call), "device_us": dt["device_us"],
+            "device_us_cold": dt["device_us_cold"]}
+
+
+def compare_b(forms: dict, port: dict, libs: dict) -> dict:
+    """Entry (b)'s forms ({name: arguments}) from each build of `libs`, timed
+    in turns: the others, the port's, the others in reverse (the port's first
+    reading is `port`'s, measure_entries'). Each is held to the port's bits.
+    Returns {"<form> [<label>]": record}, its times lists in turn order."""
+    res = {}
+    for name, form in forms.items():
+        want = [t.clone() for t in gs.gather_row_sum(*form)]
+        others = [(label, library_b(lib, form)) for label, lib in libs.items()]
+        for turn, order in ((0, others), (1, others[::-1])):
+            if turn:
+                res[f"{name} [port again]"] = {
+                    **_timed(lambda form=form: gs.gather_row_sum(*form)),
+                    "bytes": port[name]["bytes"], "bound_us": port[name]["bound_us"]}
+            for who, call in order:
+                got = call()
+                same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                rec = res.setdefault(f"{name} [{who}]", {
+                    "equals_port": same, "bytes": port[name]["bytes"],
+                    "bound_us": port[name]["bound_us"], "ms": [], "device_us": [],
+                    "device_us_cold": []})
+                rec["equals_port"] &= same
+                for k, v in _timed(call).items():
+                    rec[k].append(v)
+    return res
+
+
+def compare_line(label: str, name: str, v: dict) -> str:
+    if "equals_port" not in v:  # the port's second turn
+        return (f"[{label}] {name}: device {v['device_us']:.2f} us repeated, "
+                f"{v['device_us_cold']:.2f} us flushed ({v['bound_us'] / v['device_us_cold']:.1%} "
+                f"of the bound); event {v['ms']:.4f} ms")
+    times = lambda k, f: " / ".join(f"{t:{f}}" for t in v[k])  # noqa: E731
+    return (f"[{label}] {name}: the port's bits {v['equals_port']}; device "
+            f"{times('device_us', '.2f')} us repeated, {times('device_us_cold', '.2f')} us "
+            f"flushed ({v['bound_us'] / min(v['device_us_cold']):.1%} of the bound at best); "
+            f"event {times('ms', '.4f')} ms (turns 0 / 1)")
+
+
+def rowptr_launches(model, b) -> dict:
+    """segment_rowptr's launches in a forward without grad (inference) and
+    in a training step's forward and backward, on merged batch `b`."""
+    out = {}
+    for what in ("inference", "training step"):
+        gs.segment_rowptr.launches = 0
+        with torch.set_grad_enabled(what != "inference"):
+            y = model(b.x, b.edge_index, b.edge_mask)
+            if what != "inference":
+                y.square().mean().backward()
+        torch.cuda.synchronize()
+        out[what] = gs.segment_rowptr.launches
     return out
 
 
@@ -201,7 +306,11 @@ def entry_line(label: str, name: str, v: dict) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="file for the results as JSON lines")
+    ap.add_argument("--compare", nargs="*", default=[], metavar="LABEL=DIR",
+                    help="also time entry (b) as built from each csrc/ DIR, in turns with the "
+                         "port's")
     args = ap.parse_args(argv)
+    parse_compare_specs(args.compare)  # a malformed spec raises before anything is built
     if not torch.cuda.is_available():
         print("profile_aggregation: no CUDA device", file=sys.stderr)
         return 2
@@ -210,21 +319,32 @@ def main(argv=None) -> int:
     from tpufem_torch.profile_train import seeded_graphs
 
     dev = torch.device("cuda")
+    load_kernels()
+    libs = compare_libraries(args.compare)
+    for lab, log in (("port", build_info.get("log", "")),
+                     *((lab, lib.build_info.get("log", "")) for lab, lib in libs.items())):
+        rep = {k: v for k, v in ptxas_report(log).items() if "segment" in k or "row_sum" in k}
+        print(f"[ptxas {lab}] " + "; ".join(f"{k}: {r} registers, {ss} / {sl} B spilled"
+                                            for k, (r, ss, sl) in sorted(rep.items())))
     gset = GraphSet(seeded_graphs(8), dev)
     rows = []
     for n in (1, 4, 8):
         b = gset.batch(range(n))
         label = f"{n} graph{'s' if n > 1 else ''}"
-        for name, v in measure_entries(b.edge_index, b.edge_mask, b.x.shape[0]).items():
-            print(entry_line(label, name, v))
+        for name, v in measure_entries(b.edge_index, b.edge_mask, b.x.shape[0],
+                                       libs=libs).items():
+            print(entry_line(label, name, v) if "[" not in name else compare_line(label, name, v))
             rows.append({"graphs": n, "entry": name, **v})
         for impl in ("segment", "pallas"):
             model = GraphSAGE(SAGEConfig(aggregate_impl=impl),
                               generator=torch.Generator().manual_seed(0), device=dev).eval()
             with torch.no_grad():
                 ms = median_event_ms(lambda: model(b.x, b.edge_index, b.edge_mask))
-            print(f"[{label}] GraphSAGE forward, aggregate_impl={impl}: {ms:.4f} ms")
-            rows.append({"graphs": n, "entry": f"forward {impl}", "ms": ms})
+            rowptrs = rowptr_launches(model, b)
+            print(f"[{label}] GraphSAGE forward, aggregate_impl={impl}: {ms:.4f} ms; "
+                  f"segment_rowptr launches: {rowptrs}")
+            rows.append({"graphs": n, "entry": f"forward {impl}", "ms": ms,
+                         "rowptr_launches": rowptrs})
     if args.out:
         with open(args.out, "w") as f:
             f.writelines(json.dumps(r) + "\n" for r in rows)

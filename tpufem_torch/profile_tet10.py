@@ -331,50 +331,18 @@ def library_matrix(Jinv, vols, conn, free, lam: float, mu: float,
     """The masked operator A = F K F + (I - F) (F = diag(free)) as one f64
     CSR matrix on the inputs' device, so that torch.sparse.mm(A, x.reshape(-1,
     1)) computes kernel N's masked function. Assembled from kernel N's own
-    inputs (Jinv (T,3,3), vols, conn (T,10), free (N,3)): per tet the 10 x 10
-    node blocks of its stiffness, K_mn[d][e] = sum_q (vol/4) (lam g_md g_ne +
-    mu g_me g_nd + mu (g_m . g_n) delta_de) with g_q = DNDXI[q] Jinv^T, summed
-    per node pair (index_add_), then laid out as scalar CSR rows."""
-    dev, f64 = Jinv.device, torch.float64
-    T, N = conn.shape[0], free.shape[0]
-    c = conn.long()
-    keys = (c[:, :, None] * N + c[:, None, :]).reshape(-1)  # (T*100,) node pairs (m, n)
-    pairs, inv = torch.unique(keys, return_inverse=True)  # sorted: by row node, then column
-    del keys
-    dn = torch.as_tensor(DNDXI, dtype=f64, device=dev)
-    blocks = torch.zeros((pairs.numel(), 3, 3), dtype=f64, device=dev)
-    for t0 in range(0, T, chunk):
-        J = Jinv[t0:t0 + chunk].to(f64)
-        g = torch.einsum("qmj,tdj->tqmd", dn, J)  # (t,4,10,3)
-        S = torch.einsum("t,tqmd,tqne->tmnde", 0.25 * vols[t0:t0 + chunk].to(f64), g, g)
-        tr = S.diagonal(dim1=3, dim2=4).sum(-1)  # (t,10,10): sum_q w g_m . g_n
-        Ke = lam * S + mu * S.transpose(3, 4) + (mu * tr)[..., None, None] * torch.eye(
-            3, dtype=f64, device=dev)
-        blocks.index_add_(0, inv[t0 * 100:(t0 + chunk) * 100], Ke.reshape(-1, 3, 3))
-    del inv
-    bi, bj = pairs // N, pairs % N
-    fr = free.to(f64)
-    blocks *= fr[bi][:, :, None] * fr[bj][:, None, :]
-    diag = bi == bj
-    blocks[diag] += torch.diag_embed(1.0 - fr[bi[diag]])
-    # scalar CSR: row 3i+d holds, for each of node i's column nodes j in order,
-    # the 3 entries (3j+e); the block k of row node i at place p = k - first(i)
-    counts = torch.bincount(bi, minlength=N)
-    first = torch.cumsum(counts, 0) - counts
-    nnz = 9 * pairs.numel()
-    idx = torch.int32 if nnz < 2**31 else torch.int64
-    d3 = torch.arange(3, device=dev)
-    crow = torch.empty(3 * N + 1, dtype=torch.int64, device=dev)
-    crow[:-1] = (9 * first[:, None] + 3 * counts[:, None] * d3).reshape(-1)
-    crow[-1] = nnz
-    k = torch.arange(pairs.numel(), device=dev)
-    at = (9 * first[bi] + 3 * (k - first[bi]))[:, None, None] + \
-        (3 * counts[bi])[:, None, None] * d3[None, :, None] + d3[None, None, :]
-    cols = torch.empty(nnz, dtype=torch.int64, device=dev)
-    cols[at.reshape(-1)] = (3 * bj[:, None, None] + d3[None, None, :]).expand(-1, 3, 3).reshape(-1)
-    vals = torch.empty(nnz, dtype=f64, device=dev)
-    vals[at.reshape(-1)] = blocks.reshape(-1)
-    return torch.sparse_csr_tensor(crow.to(idx), cols.to(idx), vals, (3 * N, 3 * N))
+    inputs (Jinv (T,3,3), vols, conn (T,10), free (N,3)) by
+    profile_library.assembled_csr, the gradients g_q = DNDXI[q] Jinv^T at the
+    4 Gauss points, each of weight vol / 4."""
+    from tpufem_torch.profile_library import assembled_csr
+
+    dn = torch.as_tensor(DNDXI, dtype=torch.float64, device=Jinv.device)
+
+    def grads_of(t0, t1):
+        g = torch.einsum("qmj,tdj->tqmd", dn, Jinv[t0:t1].to(torch.float64))  # (t,4,10,3)
+        return g, (0.25 * vols[t0:t1].to(torch.float64))[:, None].expand(-1, 4)
+
+    return assembled_csr(conn, free.shape[0], free, lam, mu, grads_of, chunk)
 
 
 def measure_N(label, res, p4, device, timed=True) -> dict:

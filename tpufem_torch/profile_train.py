@@ -10,7 +10,18 @@ steps, the device activities per step, the launches and device time per step
 of each segment-sum entry (csrc/segment_sum.cu) and device time by op; the
 full table goes to --out. --aggregate_impl picks the aggregation route.
 
+--inference: instead, one DOF100K graph through the full-width model in
+eval() mode without grad, as the inference CLI runs it (the plan built in
+the forward): the median CUDA-event ms of a forward (with launch latency),
+then the device time of 20 forwards under torch.profiler and each
+segment-sum entry's share of it.
+
+The module imports only the port, so it times another tree's port too:
+PYTHONPATH=build/parent python tpufem_torch/profile_train.py [--inference]
+runs this file on the package unpacked there.
+
 Usage: python -m tpufem_torch.profile_train [--aggregate_impl segment|pallas] [--out PATH]
+           [--inference]
 """
 
 from __future__ import annotations
@@ -66,15 +77,65 @@ def seeded_graphs(n: int, seed: int = 0):
     return [pad_graph(g, n_max, e_max) for g in raw]
 
 
+def by_entry(dev_events, calls: int, busy_s: float) -> None:
+    """Print each segment-sum entry's launches and device time per call."""
+    us_of: dict[str, list[float]] = {}
+    for e in dev_events:
+        entry = segment_entry(e.name)
+        if entry:
+            us_of.setdefault(entry, []).append(e.time_range.elapsed_us())
+    for entry, us in sorted(us_of.items()):
+        print(f"[profiled] {entry}: {len(us) / calls:.0f} launches per call, "
+              f"{sum(us) / len(us):.2f} us each, {sum(us) / calls:.1f} us per call "
+              f"({sum(us) / (busy_s * 1e6):.1%} of device time)")
+
+
+def inference(dev, impl: str, calls: int = 20) -> None:
+    """One DOF100K graph through the full-width model without grad (module
+    docstring)."""
+    from tpufem_torch.models.sage import GraphSAGE
+    from tpufem_torch.utils.profiling import median_event_ms
+
+    g = seeded_graphs(1)[0]
+    model = GraphSAGE(SAGEConfig(aggregate_impl=impl), generator=torch.Generator().manual_seed(0),
+                      device=dev).eval()
+    x, ei, em = (torch.as_tensor(a, device=dev) for a in (g.x, g.edge_index, g.edge_mask))
+
+    def forward():
+        with torch.no_grad():
+            return model(x, ei, em)
+
+    ms = median_event_ms(forward)
+    print(f"[inference] aggregate_impl={impl}, one DOF100K graph (N={g.x.shape[0]}, "
+          f"E={g.edge_index.shape[1]}): {ms:.4f} ms per wing (median of 21 CUDA-event "
+          f"timings of a forward, the plan included)")
+    forward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            forward()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.time_range.elapsed_us() for e in dev_events) / 1e6
+    print(f"[profiled] {calls} forwards: device busy {busy_s / calls * 1e3:.4f} ms per forward "
+          f"in {len(dev_events) / calls:.0f} device activities")
+    by_entry(dev_events, calls, busy_s)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--aggregate_impl", default="segment", choices=["segment", "pallas"])
     ap.add_argument("--out", default=None, help="file for the full by-op table")
+    ap.add_argument("--inference", action="store_true",
+                    help="time inference on one graph instead of training steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    if args.inference:
+        inference(dev, args.aggregate_impl)
+        return 0
     trainer = Trainer(TrainConfig(clip_norm=1.0, model=SAGEConfig(aggregate_impl=args.aggregate_impl)),
                       device=dev)
     model, opt = trainer.init()
@@ -102,15 +163,7 @@ def main(argv=None) -> int:
           f"({busy_s / STEPS * 1e3:.3f} ms per step) in {len(dev_events)} device activities "
           f"({len(dev_events) / STEPS:.0f} per step); {busy_s / pwall:.1%} of the profiled "
           f"wall, {busy_s / (STEPS * wall):.1%} of the unprofiled wall")
-    by_entry: dict[str, list[float]] = {}
-    for e in dev_events:
-        entry = segment_entry(e.name)
-        if entry:
-            by_entry.setdefault(entry, []).append(e.time_range.elapsed_us())
-    for entry, us in sorted(by_entry.items()):
-        print(f"[profiled] {entry}: {len(us) / STEPS:.0f} launches per step, "
-              f"{sum(us) / len(us):.2f} us each, {sum(us) / STEPS:.1f} us per step "
-              f"({sum(us) / (busy_s * 1e6):.1%} of device time)")
+    by_entry(dev_events, STEPS, busy_s)  # a call: a step
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
     if args.out:
         with open(args.out, "w") as f:
