@@ -147,17 +147,41 @@ trained checkpoint exists). Along the way:
      information); (i) solve_tet10_case (line + RBM two-level) and
      Tet10MGSolver, f64, tol 1e-9, at tpufem's test grid 16x16x4: u within
      1e-7 and the p-MG in fewer iterations; kernel N launched;
- 10. the library yardsticks (tpufem_torch/profile_library.py): for kernels
-     B, D, F, G, I and K, each linear at fixed state, torch.sparse.mm of the
-     kernel's matrix assembled on the card (probed through the plain
-     version, or summed from D's element matrices), held to the plain
-     version to 1e-12 (f64), timed beside the kernel at the shape that heads
-     the kernel's entry: its `library_ms` and `library`; H and J, nonlinear
-     in u, say so in `library_note`;
- 11. prints the wall time of every phase, the peak device memory of the
+ 10. the second batched engine on phase 3's batch: (a) kernel O
+     (stiffness_apply_t, the trailing-batch tet4 operator of WingBatchT and
+     WingMGT: mask, element forces of B lanes, per-node sums, Dirichlet
+     identity in one launch) against its plain version at every level of
+     DOF100K's V-cycle but the coarsest (B = 8) and at COARSE (B = 3), f64
+     within 1e-12 and f32 within 1e-5 of the largest entry, masked and
+     unmasked, bitwise repeatable, exactly 1 launch and 1 device activity
+     per apply, event / plain / device times (repeated and flushed) against
+     the byte bound; then, launch counters zeroed: (b) WingBatchT(DOF100K,
+     float64, mg_levels=None) and the stencil engine (outer_f64) at tol
+     1e-7: converged, TRUE f64 rel <= 2e-7 recomputed on the CPU, u within
+     1e-5; (c) at MEDIUM the two-level and the multigrid WingBatchT, f64, tol
+     1e-6: converged, the two-level in more iterations, u within 1e-4; (d)
+     WingBatchT(DOF100K, float32, mg_levels=None), tol 1e-6: converged, tip
+     u_z < 0, u within 1e-2 of (b)'s (TRUE f64 residuals printed); (e)
+     WingStencilT.solve(refine_steps=4, inner_tol=1e-3): TRUE f64 rel <= 1e-6
+     on the CPU in every lane, u within 1e-4 of phase 3's; the f32-only CG
+     (iterations, recurred and TRUE residuals printed); (f) the
+     verify_stencil_solver CLI exits 0, and generate_fem_dataset --batched
+     --engine twolevel --limit 4 --no_glb --force on a copy of phase 5's
+     data root: every report success with engine "twolevel", the surface
+     displacement within 1e-4 of the stencil engine's (the vm gap, the
+     retry queue and the launches of each step printed); kernel O launched;
+ 11. the library yardsticks (tpufem_torch/profile_library.py): for kernels
+     B, D, F, G, I, K and O, each linear at fixed state, torch.sparse.mm of
+     the kernel's matrix assembled on the card (probed through the plain
+     version, or summed from D's element matrices; O's B lanes as one
+     block-diagonal matrix), held to the plain version to 1e-12 (f64), timed
+     beside the kernel at the shape that heads the kernel's entry: its
+     `library_ms` and `library`; H and J, nonlinear in u, say so in
+     `library_note`;
+ 12. prints the wall time of every phase, the peak device memory of the
      phase-3 solve, the training phase, the gather solve, the dynamics, the
-     design, the tet10 phase and its gather part, the kernels' JSON line,
-     then {"ok": true, "device": {...}}.
+     design, the tet10 phase and its gather part, the second batched engine,
+     the kernels' JSON line, then {"ok": true, "device": {...}}.
 
 Every phase raises on failure; the script then exits nonzero and prints no
 result. Usage: python3 chip_smoke.py   (one card, no arguments)
@@ -171,6 +195,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -437,8 +462,12 @@ def main() -> int:
     e["tet10_launches"] = state["tet10_csr"]["launches"]
     e["shapes"].update(state["tet10_csr"]["shapes"])
     t0 = time.perf_counter()
+    kernels.append(run_batched_engine(dev, state, smi))
+    walls["10 second batched engine"] = time.perf_counter() - t0
+    print(f"[batched] phase 10 wall {walls['10 second batched engine']:.3f} s", flush=True)
+    t0 = time.perf_counter()
     run_library_yardsticks(dev, kernels)
-    walls["10 library yardsticks"] = time.perf_counter() - t0
+    walls["11 library yardsticks"] = time.perf_counter() - t0
     print(json.dumps({"phase_wall_s": walls}))
     print(json.dumps({"peak_device_memory_bytes": state["peak_bytes"]}))
     print(json.dumps({"kernels": kernels}))
@@ -450,11 +479,12 @@ def main() -> int:
 
 # kernel letter in profile_library.CASES -> its name in the kernels' line
 LIBRARY_KERNELS = {"B": "strain_apply", "D": "stiffness_apply", "F": "element_stress",
-                   "G": "geom_apply", "I": "stvk_tangent_apply", "K": "strain_apply_geo_vjp"}
+                   "G": "geom_apply", "I": "stvk_tangent_apply", "K": "strain_apply_geo_vjp",
+                   "O": "stiffness_apply_t"}
 
 
 def run_library_yardsticks(dev, kernels):
-    """Phase 10: each linear kernel's torch.sparse.mm yardstick
+    """Phase 11: each linear kernel's torch.sparse.mm yardstick
     (profile_library.library_record raises unless the assembled matrix gives
     the plain version's result to 1e-12), into the kernels' line."""
     from tpufem_torch.profile_library import CASES, library_record, line
@@ -519,7 +549,7 @@ def run(dev, res, batch):
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = solver.solve(p4, pressure=PRESSURE, tol=TOL, maxiter=2000)
+    out = solver.solve(p4, pressure=PRESSURE, tol=TOL, maxiter=2000, outer_f64=True)
     torch.cuda.synchronize()
     solve_wall = time.perf_counter() - t0
     peak_bytes = {f"{res.key} B={batch} stencil solve": torch.cuda.max_memory_allocated()}
@@ -785,6 +815,10 @@ def run_training_path(dev, seg):
         print(f"[dataset] s/wing: geometry {wall['geometry'] / N_WINGS:.4f}, mesh "
               f"{wall['mesh'] / N_WINGS:.4f}, FEM solve {(wall['fem'] - write_s) / N_WINGS:.4f}, "
               f"writing {write_s / N_WINGS:.4f} (FEM CLI wall {wall['fem']:.3f} s)")
+        # phase 10f solves the first TWOLEVEL_CASES again with --engine twolevel in a copy
+        seg["data_copy"] = Path(tempfile.mkdtemp(dir=scratch, prefix="smoke_data_copy_"))
+        shutil.copytree(root, seg["data_copy"], dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("*.glb", "models"))
 
         zero_segment_counters()
         cli("train", train_gnn, ["--epochs", str(EPOCHS), "--batch_size", "4",
@@ -1069,7 +1103,7 @@ def run_gather_path(dev, res, state):
     # built anew: kernel E's fixed order), then on phase 3's (its setup cache)
     for label, slv in (("a fresh WingStencilT", WingStencilT(res, device=dev)),
                        ("phase 3's solver, its setup cache", solver)):
-        again = slv.solve(p4, pressure=PRESSURE, tol=TOL, maxiter=2000)
+        again = slv.solve(p4, pressure=PRESSURE, tol=TOL, maxiter=2000, outer_f64=True)
         torch.cuda.synchronize()
         setup_s = slv.last_timing["setup_s"]
         require(again.iters == out.iters, f"{label}: {again.iters} iters, not {out.iters}")
@@ -1943,6 +1977,235 @@ def run_tet10_gather(dev, state, smi, lam, mu):
                                                    "library_ms", "library_device_us")}
                          for k, r in rs.items()}
                    for lbl, rs in nrec.items()}}
+
+
+# ---------------------------------------------------------------- phase 10
+
+
+TWOLEVEL_CASES = 4  # phase 10f: phase 5's first wings again, through --engine twolevel
+O_SOURCE = "tpufem_torch/csrc/tet4_force_t.cu"
+O_REPLACES = "tpufem/fem/multigrid.py:265"
+O_HEADLINE = "DOF100K level 0 64x80x6 f64 masked"
+
+
+def batched_counters():
+    from tpufem_torch.fem import assembly as asm
+    from tpufem_torch.fem import stencil as st
+    from tpufem_torch.ops import csr_segment_sum as cs
+
+    return {"stiffness_apply_t": asm.stiffness_apply_t, "stiffness_apply": asm.stiffness_apply,
+            "strain_apply": st.strain_apply, "csr_segment_sum": cs.csr_segment_sum}
+
+
+def max_rel(a, b):
+    """max |a - b| over max |b|, both as f64 numpy."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def run_batched_engine(dev, state, smi):
+    """Phase 10, the second batched engine on phase 3's batch (B = 8, 5 kPa):
+    (a) kernel O against its plain version at every level of DOF100K's
+    V-cycle but the coarsest and at COARSE B = 3 (f64 1e-12, f32 1e-5 of the
+    plain f32 version, masked and unmasked, bitwise repeat, exactly 1 launch
+    and 1 device activity per apply, event / plain / device times, bound);
+    then, launch counters zeroed, (b) WingBatchT(DOF100K, float64,
+    mg_levels=None) and the stencil engine (outer_f64) at tol 1e-7, both
+    converged, TRUE f64 rel <= 2e-7 on the CPU, u within 1e-5; (c) at MEDIUM
+    the two-level and the multigrid WingBatchT, f64, tol 1e-6, converged, the
+    two-level in more iterations, u within 1e-4; (d) WingBatchT(DOF100K,
+    float32, mg_levels=None) at tol 1e-6, converged, tip u_z < 0, u within
+    1e-2 of (b)'s; (e) WingStencilT.solve(refine_steps=4, inner_tol=1e-3):
+    TRUE rel <= 1e-6 on the CPU in every lane, u within 1e-4 of phase 3's;
+    the f32-only branch (printed); (f) the verify_stencil_solver CLI, and
+    generate_fem_dataset --engine twolevel on phase 5's first wings (reports
+    success, surface displacement within 1e-4 of the stencil engine's; the
+    vm gap printed). Returns kernel O's entry of the kernels' line."""
+    from tpufem_torch import profile_batched as pb
+    from tpufem_torch.fem.batched_t import WingBatchT
+    from tpufem_torch.fem.material import Material, lame_params
+    from tpufem_torch.mesher import DOF100K, MEDIUM
+    from tpufem_torch.pipeline.config import get_paths
+    from tpufem_torch.scripts import generate_fem_dataset, verify_stencil_solver
+
+    lam, mu = lame_params(Material())
+    p4 = state["p4"]
+    solver = state["solver"]
+    bt = solver.bt
+    upper, free = bt.upper.cpu().numpy(), bt.free64.cpu().numpy()
+
+    def true_rel(u):
+        return true_residual_cpu(DOF100K, p4, u.detach().double().cpu(), upper, free, lam, mu)
+
+    # ---- 10a. kernel O at each shape it runs at, against its plain version
+    print(f"[kernel O] {smi}", flush=True)
+    orec = {}
+    for label, res, batch in pb.cases(p4):
+        for r in pb.measure(label, res, batch, dev, lam, mu):
+            key = f"{label} {r['dtype']} {'masked' if r['masked'] else 'unmasked'}"
+            require(r["launches"] == 1 and r["activities"] == 1,
+                    f"kernel O {key}: {r['launches']} launches and {r['activities']} device "
+                    f"activities per apply, not 1")
+            orec[key] = r
+
+    counters = batched_counters()
+    for c in counters.values():
+        c.launches = 0
+    by_step = {}
+
+    def mark(step):
+        by_step[step] = {n: c.launches - sum(v[n] for v in by_step.values())
+                         for n, c in counters.items()}
+        return by_step[step]
+
+    torch.cuda.reset_peak_memory_stats()
+    # ---- 10b. the multigrid WingBatchT against the stencil engine, f64, tol 1e-7
+    t0 = time.perf_counter()
+    mg64 = WingBatchT(DOF100K, dtype=torch.float64, mg_levels=None, device=dev)
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_mg = mg64.solve(p4, pressure=PRESSURE, tol=1e-7, maxiter=2000)
+    torch.cuda.synchronize()
+    wall_mg = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_st = solver.solve(p4, pressure=PRESSURE, tol=1e-7, maxiter=2000, outer_f64=True)
+    torch.cuda.synchronize()
+    wall_st = time.perf_counter() - t0
+    launches = mark("10b DOF100K f64 multigrid + stencil")
+    rel_mg, rel_st = true_rel(out_mg.u), true_rel(out_st.u)
+    gap = max_rel(out_mg.u.cpu(), out_st.u.cpu())
+    print(f"[batched] 10b WingBatchT(DOF100K, float64, mg_levels=None), {len(mg64.mg.levels)} "
+          f"levels: init {init_s:.3f} s, solve {wall_mg:.3f} s, {out_mg.iters} iterations, "
+          f"recurred rel max {float(out_mg.rel_residual.max()):.3e}, TRUE f64 rel on the CPU max "
+          f"{rel_mg.max():.3e}; stencil engine (outer_f64) {wall_st:.3f} s, {out_st.iters} "
+          f"iterations, TRUE rel max {rel_st.max():.3e}; u gap {gap:.3e} of max |u| (bar 1e-5); "
+          f"launches {launches} [{smi}]", flush=True)
+    require(bool(out_mg.converged.all()) and bool(out_st.converged.all()),
+            f"10b: converged {out_mg.converged.tolist()} / {out_st.converged.tolist()}")
+    require(max(rel_mg.max(), rel_st.max()) <= 2e-7, f"10b: TRUE rel {rel_mg} / {rel_st}")
+    require(gap <= 1e-5, f"10b: the engines differ by {gap:.3e}")
+    require(launches["stiffness_apply_t"] > 0, "10b: kernel O was not launched")
+
+    # ---- 10c. the two-level against the multigrid WingBatchT at MEDIUM, f64, tol 1e-6
+    outs = {}
+    for name, levels in (("two-level", 0), ("multigrid", None)):
+        t0 = time.perf_counter()
+        outs[name] = WingBatchT(MEDIUM, dtype=torch.float64, mg_levels=levels, device=dev).solve(
+            p4, pressure=PRESSURE, tol=TOL, maxiter=20000)
+        torch.cuda.synchronize()
+        outs[name + " s"] = time.perf_counter() - t0
+    launches = mark("10c MEDIUM f64 two-level + multigrid")
+    two, mgm = outs["two-level"], outs["multigrid"]
+    gap_c = max_rel(two.u.cpu(), mgm.u.cpu())
+    print(f"[batched] 10c MEDIUM B={len(p4)} f64 tol {TOL}: two-level {two.iters} iterations "
+          f"({outs['two-level s']:.3f} s), multigrid {mgm.iters} ({outs['multigrid s']:.3f} s); "
+          f"u gap {gap_c:.3e} (bar 1e-4); launches {launches}", flush=True)
+    require(bool(two.converged.all()) and bool(mgm.converged.all()), "10c: not converged")
+    require(two.iters > mgm.iters, f"10c: two-level {two.iters}, multigrid {mgm.iters}")
+    require(gap_c <= 1e-4, f"10c: two-level and multigrid differ by {gap_c:.3e}")
+
+    # ---- 10d. the f32 multigrid WingBatchT at DOF100K (tpufem's verify drive), tol 1e-6
+    t0 = time.perf_counter()
+    out32 = WingBatchT(DOF100K, dtype=torch.float32, mg_levels=None, device=dev).solve(
+        p4, pressure=PRESSURE, tol=TOL, maxiter=2000)
+    torch.cuda.synchronize()
+    wall32 = time.perf_counter() - t0
+    launches = mark("10d DOF100K f32 multigrid")
+    u32 = out32.u.cpu().numpy()
+    rel32 = true_rel(out32.u)
+    gaps32 = [max_rel(u32[:, :, k], out_mg.u[:, :, k].cpu()) for k in range(len(p4))]
+    nodes32 = out32.nodes.cpu().numpy()
+    uz_tip = [float(u32[nodes32[:, 1, k] > 0.9 * float(p4[k, 0]), 2, k].mean())
+              for k in range(len(p4))]
+    print(f"[batched] 10d WingBatchT(DOF100K, float32, mg_levels=None) tol {TOL}: "
+          f"{wall32:.3f} s, {out32.iters} iterations, converged {out32.converged.tolist()}, "
+          f"recurred rel max {float(out32.rel_residual.max()):.3e}; TRUE f64 rel per lane "
+          f"{[f'{r:.3e}' for r in rel32]}; u gap to 10b per lane {[f'{g:.3e}' for g in gaps32]} "
+          f"(bar 1e-2); tip u_z {[f'{z:.3e}' for z in uz_tip]}; launches {launches}", flush=True)
+    require(bool(out32.converged.all()), f"10d: converged {out32.converged.tolist()}")
+    require(max(uz_tip) < 0, f"10d: tip u_z {uz_tip}")
+    require(max(gaps32) <= 1e-2, f"10d: u gap {gaps32}")
+
+    # ---- 10e. WingStencilT.solve's refine branch (bench.py --mode refine), and the f32 CG
+    t0 = time.perf_counter()
+    ref = solver.solve(p4, pressure=PRESSURE, tol=TOL, maxiter=2000, refine_steps=4,
+                       inner_tol=1e-3)
+    torch.cuda.synchronize()
+    wall_ref = time.perf_counter() - t0
+    rel_ref = true_rel(ref.u)
+    gap_ref = max_rel(ref.u.cpu(), state["out"].u.cpu())
+    t0 = time.perf_counter()
+    f32 = solver.solve(p4, pressure=PRESSURE, tol=TOL, maxiter=2000)
+    torch.cuda.synchronize()
+    wall_f32 = time.perf_counter() - t0
+    launches = mark("10e stencil refine + f32-only")
+    rel_f32 = true_rel(f32.u)
+    print(f"[stencil] 10e refine_steps=4 inner_tol=1e-3: {wall_ref:.3f} s, {ref.iters} "
+          f"iterations, TRUE f64 rel (solver) max {float(ref.rel_residual.max()):.3e}, on the CPU "
+          f"{[f'{r:.3e}' for r in rel_ref]} (bar {TOL}); u gap to phase 3 {gap_ref:.3e} (bar 1e-4)"
+          f"; f32-only CG: {wall_f32:.3f} s, {f32.iters} iterations, recurred rel "
+          f"{[f'{r:.3e}' for r in f32.rel_residual.tolist()]}, TRUE f64 rel "
+          f"{[f'{r:.3e}' for r in rel_f32]}; launches {launches} [{smi}]", flush=True)
+    require(rel_ref.max() <= TOL, f"10e: refine TRUE rel {rel_ref}")
+    require(gap_ref <= 1e-4, f"10e: refine differs from phase 3 by {gap_ref:.3e}")
+    require(launches["strain_apply"] > 0, "10e: kernel B was not launched")
+
+    # ---- 10f. the CLIs
+    t0 = time.perf_counter()
+    require(verify_stencil_solver.main(["--device", "cuda"]) == 0, "verify_stencil_solver failed")
+    wall_verify = time.perf_counter() - t0
+    mark("10f verify_stencil_solver")
+    root = state["segment"].pop("data_copy")
+    try:
+        paths = get_paths(str(root))
+        ids = [f"{i:03d}" for i in range(1, TWOLEVEL_CASES + 1)]
+        stencil = {c: dict(np.load(paths.fem_case(c) / "surface_results.npz")) for c in ids}
+        t0 = time.perf_counter()
+        rc = generate_fem_dataset.main(["--batched", "--engine", "twolevel", "--limit",
+                                        str(TWOLEVEL_CASES), "--no_glb", "--force", "--device",
+                                        "cuda", "--data_root", str(root)])
+        wall_two = time.perf_counter() - t0
+        launches = mark("10f generate_fem_dataset --engine twolevel")
+        reps = [json.loads((paths.fem_case(c) / "fem_report.json").read_text()) for c in ids]
+        retried = [r["case_id"] for r in reps if "batched_lane_failure" in r["extra"]]
+        two = {c: np.load(paths.fem_case(c) / "surface_results.npz") for c in ids}
+        gaps_u = [max_rel(two[c]["disp"], stencil[c]["disp"]) for c in ids]
+        gaps_vm = [max_rel(two[c]["stress_vm"], stencil[c]["stress_vm"]) for c in ids]
+        print(f"[batched] 10f verify_stencil_solver {wall_verify:.3f} s; generate_fem_dataset "
+              f"--engine twolevel on {TWOLEVEL_CASES} DOF100K wings: rc {rc}, {wall_two:.3f} s, "
+              f"statuses {[r['status'] for r in reps]}, through the retry queue {len(retried)} "
+              f"{retried}, engines {[r['extra'].get('engine') for r in reps]}, iterations "
+              f"{[r['extra'].get('solver', {}).get('iters') for r in reps]}; gaps to the stencil "
+              f"engine's artifacts: disp {[f'{g:.3e}' for g in gaps_u]} (bar 1e-4), vm "
+              f"{[f'{g:.3e}' for g in gaps_vm]} (no bar: the f32 engine's stress near the LE sits "
+              f"~12% off the f64 solution in tpufem too, tests/probe_twolevel_f32_stress.py); "
+              f"launches {launches}", flush=True)
+        require(rc == 0 and all(r["status"] == "success" for r in reps),
+                f"10f: twolevel dataset {[r['status'] for r in reps]}")
+        require(max(gaps_u) <= 1e-4, f"10f: disp gap {gaps_u}")
+        require(launches["stiffness_apply"] > 0, "10f: kernel D was not launched")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    state["peak_bytes"]["second batched engine phase"] = torch.cuda.max_memory_allocated()
+    total = {n: sum(v[n] for v in by_step.values()) for n in counters}
+    print(f"[batched] kernel launches (10b-10f): {total}", flush=True)
+    require(total["stiffness_apply_t"] > 0, "kernel O was not launched in phase 10")
+
+    rec64, rec32 = orec[O_HEADLINE], orec[O_HEADLINE.replace("f64", "f32")]
+    keys = ("device_us", "device_us_cold", "share", "share_repeated", "activities", "bound_us",
+            "bound_by", "max_abs_err", "err_vs_plain", "ms", "plain_ms", "overlap", "blocks",
+            "slots", "plan_bytes", "T", "N", "B")
+    return {
+        "name": "stiffness_apply_t", "route": "cuda", "source": O_SOURCE, "replaces": O_REPLACES,
+        "kernel_letter": "O", "launches": total["stiffness_apply_t"],
+        "launches_by_step": {k: v["stiffness_apply_t"] for k, v in by_step.items()},
+        "shape": O_HEADLINE, "dtype": "f64",
+        **{k: rec64[k] for k in ("max_abs_err", "ms", "plain_ms")},
+        "bound_ms": rec64["bound_us"] / 1e3, "bound_by": rec64["bound_by"], "library_ms": None,
+        **{k: rec64[k] for k in keys},
+        "f32": {k: rec32[k] for k in keys},
+        "shapes": {k: {f: r[f] for f in keys} for k, r in orec.items()},
+    }
 
 
 if __name__ == "__main__":

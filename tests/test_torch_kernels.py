@@ -421,8 +421,8 @@ def test_solve_on_cuda_matches_cpu(cuda, B):
     that every vector the V-cycle and the CG hand the operator is contiguous."""
     res = WingMeshResolution(12, 10, 3, te_floor_frac=0.006, spacing="le")
     p4 = seeded_batch(8)[:B]
-    out_c = WingStencilT(res, device=cuda).solve(p4, tol=1e-8, maxiter=2000)
-    out_h = WingStencilT(res, device="cpu").solve(p4, tol=1e-8, maxiter=2000)
+    out_c = WingStencilT(res, device=cuda).solve(p4, tol=1e-8, maxiter=2000, outer_f64=True)
+    out_h = WingStencilT(res, device="cpu").solve(p4, tol=1e-8, maxiter=2000, outer_f64=True)
     assert bool(out_c.converged.all()) and bool(out_h.converged.all())
     u_c, u_h = out_c.u.cpu(), out_h.u
     assert (u_c - u_h).abs().max().item() <= 1e-7 * u_h.abs().max().item()
@@ -511,6 +511,30 @@ def test_stiffness_apply_is_one_device_kernel(cuda, masked, dtype, monkeypatch):
     r = device_time(lambda: tas.stiffness_apply(g, v, tets, x, LAM, MU, plan, free),
                     "stiffness_apply")
     assert r["launches"] == 1 and r["activities"] == 1, r
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+def test_stiffness_apply_t_matches_plain(cuda, masked, dtype):
+    """Kernel O, the trailing-batch operator, against its plain version at
+    COARSE B=3 and 16x16x4 B=8 (f64 1e-12, f32 1e-5 of the plain f32
+    version; check_apply_t raises otherwise), bitwise repeatable, one launch
+    and one device activity per apply."""
+    from tpufem_torch.profile_batched import check_apply_t, operator_inputs_t
+
+    for res, B in ((COARSE, 3), (WingMeshResolution(16, 16, 4, 0.006, "le"), 8)):
+        g64, v64, tets, x64, f64, _ = operator_inputs_t(res, seeded_batch(8)[:B], torch.float64,
+                                                         cuda)
+        plan64 = tas.incidence_t(tets.cpu(), x64.shape[0], B, torch.float64, cuda)
+        ref = tas.stiffness_apply_t_plain(g64, v64, tets, x64, LAM, MU, plan64,
+                                          f64 if masked else None)
+        g, v, x = g64.to(dtype), v64.to(dtype), x64.to(dtype)
+        free = f64.to(dtype) if masked else None
+        plan = tas.incidence_t(tets.cpu(), x.shape[0], B, dtype, cuda)
+        check_apply_t(g, v, tets, x, free, plan, LAM, MU, ref)
+        r = device_time(lambda: tas.stiffness_apply_t(g, v, tets, x, LAM, MU, plan, free),
+                        "stiffness_apply_t")
+        assert r["launches"] == 1 and r["activities"] == 1, r
 
 
 def test_stiffness_apply_at_the_valence_cap(cuda):
@@ -642,8 +666,8 @@ def test_stencil_solves_are_bitwise_repeatable(cuda):
     take the same iterations and give the same bits."""
     res = WingMeshResolution(12, 10, 3, te_floor_frac=0.006, spacing="le")
     solver = WingStencilT(res, device=cuda)
-    a = solver.solve(P4, tol=1e-8, maxiter=2000)
-    b = solver.solve(P4, tol=1e-8, maxiter=2000)
+    a = solver.solve(P4, tol=1e-8, maxiter=2000, outer_f64=True)
+    b = solver.solve(P4, tol=1e-8, maxiter=2000, outer_f64=True)
     assert a.iters == b.iters
     for f in ("u", "stress6", "vm"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f

@@ -5,15 +5,22 @@ scripts/generate_fem_dataset.py:195-204) run, on the CPU at 8x12x2, B=2.
 
 - WingStencilT(res, dtype=...) with tpufem's float32 spelled every way, and
   .solve(..., outer_f64=True, chunk_iters=250, inner_tol=...), give the
-  bits of the call without those keywords;
+  bits of the call without chunk_iters and inner_tol;
 - the branches that are not ported (a V-cycle dtype other than float32,
-  outer_f64=False, refine_steps > 0, warm_f32, dd_main) raise
-  NotImplementedError;
+  warm_f32, dd_main) raise NotImplementedError;
+- the f32-only CG (outer_f64=False, tpufem's default) and refine_steps=2
+  give tpufem's same branch at tpufem's test grid 12x10x3 (two wings, tol
+  1e-6): refine's f64 u within 1e-7 of the largest displacement (measured
+  3.6e-9) and the same converged flags; the f32 u within 5e-5 (the two f32
+  CGs round differently: measured 7.3e-6), both converged on their recurred
+  residual;
+- WingStencilT.solve's keyword defaults are tpufem's;
 - WingSolveConfig has tpufem's fields, chunk_iters among them, and
   generate_fem_dataset's parser takes --chunk_iters 200.
 """
 
 import dataclasses
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +34,7 @@ from tpufem_torch.scripts import generate_fem_dataset
 
 RES = WingMeshResolution(8, 12, 2, te_floor_frac=0.006, spacing="le")
 P4 = np.array([[1.2, 0.35, 10.0, 0.10], [1.8, 0.25, 25.0, 0.07]])
-KW = {"pressure": 5e3, "tol": 1e-8, "maxiter": 2000}
+KW = {"pressure": 5e3, "tol": 1e-8, "maxiter": 2000, "outer_f64": True}
 F32 = {"torch": torch.float32, "jnp": jnp.float32, "numpy": np.float32,
        "numpy dtype": np.dtype("float32"), "name": "float32"}
 
@@ -51,22 +58,61 @@ def plain():
 @pytest.mark.parametrize("spelling", list(F32))
 def test_tpufem_keywords_give_the_same_bits(plain, spelling):
     out = WingStencilT(RES, device="cpu", dtype=F32[spelling]).solve(
-        P4, outer_f64=True, chunk_iters=250, inner_tol=1e-4, **KW)
+        P4, chunk_iters=250, inner_tol=1e-4, **KW)
     assert bool(out.converged.all())
     for a, b in zip(out, plain, strict=True):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
 
 
-@pytest.mark.parametrize("call", ["dtype float64", "dtype bfloat16", "outer_f64=False",
-                                  "refine_steps=2", "warm_f32=True", "dd_main=True"])
+@pytest.mark.parametrize("call", ["dtype float64", "dtype bfloat16", "warm_f32=True",
+                                  "dd_main=True"])
 def test_unported_branches_raise(call):
     if call.startswith("dtype"):
         with pytest.raises(NotImplementedError, match="not ported"):
             WingStencilT(RES, device="cpu", dtype=call.split()[1])
         return
     key, value = call.split("=")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2d"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         WingStencilT(RES, device="cpu").solve(P4, **{key: eval(value)}, **KW)
+
+
+BRANCH_RES = WingMeshResolution(12, 10, 3, te_floor_frac=0.006, spacing="le")
+BRANCH_P4 = np.array([[1.2, 0.35, 10.0, 0.10], [1.8, 0.25, 25.0, 0.07]])
+
+
+@pytest.mark.parametrize("call", ["outer_f64=False", "refine_steps=2"])
+def test_ported_branches_match_tpufem(call):
+    from tpufem.fem.stencil_mg import WingStencilT as JWingStencilT
+    from tpufem.mesher import WingMeshResolution as JRes
+
+    kw = {"outer_f64": False} if call == "outer_f64=False" else {"refine_steps": 2,
+                                                                 "inner_tol": 1e-3}
+    args = {"pressure": 5e3, "tol": 1e-6, "maxiter": 2000}
+    out = WingStencilT(BRANCH_RES, device="cpu").solve(BRANCH_P4, **args, **kw)
+    ref = JWingStencilT(JRes(12, 10, 3, te_floor_frac=0.006, spacing="le"),
+                        dtype=jnp.float32).solve(BRANCH_P4, chunk_iters=500, **args, **kw)
+    u, ur = out.u.numpy(), np.asarray(ref.u)
+    err = np.abs(u - ur).max() / np.abs(ur).max()
+    np.testing.assert_array_equal(out.converged.numpy(), np.asarray(ref.converged))
+    if "refine_steps" in kw:  # the f64 u the TRUE residual certifies
+        assert u.dtype == ur.dtype == np.float64 and err <= 1e-7, err
+        np.testing.assert_allclose(out.rel_residual.numpy(), np.asarray(ref.rel_residual),
+                                   rtol=0.5)
+    else:  # the f32 CG on its recurred residual
+        assert u.dtype == ur.dtype == np.float32 and err <= 5e-5, err
+        assert bool(out.converged.all()) and float(out.rel_residual.max()) <= 1e-6
+
+
+def test_solve_defaults_equal_tpufem():
+    from tpufem.fem.stencil_mg import WingStencilT as JWingStencilT
+
+    def defaults(fn):
+        return {k: p.default for k, p in inspect.signature(fn).parameters.items()
+                if p.default is not inspect.Parameter.empty}
+
+    port, ref = defaults(WingStencilT.solve), defaults(JWingStencilT.solve)
+    assert {k: port[k] for k in ref} == ref
+    assert ref["outer_f64"] is False
 
 
 def test_wing_solve_config_takes_tpufem_fields():

@@ -2,7 +2,8 @@
 matrix times a seeded vector equals the kernel's plain version to 1e-12 of
 its largest entry (f64), at small grids with a floored and a sharp trailing
 edge (the welds), for kernels B, F, G, I and K (probed through the plain
-version by grid_probe_csr) and D (assembled_csr from its element matrices);
+version by grid_probe_csr), D (assembled_csr from its element matrices) and
+O (D's assembly per lane, as one block-diagonal matrix, B = 3);
 and the probe refuses a function that reads past the colouring's reach."""
 
 import pytest
@@ -15,7 +16,8 @@ GRIDS = {"floored": WingMeshResolution(7, 5, 2, 0.006, "le"),
          "sharp TE": WingMeshResolution(7, 5, 2, 0.0, "le")}
 CASES = {"B": lambda res: pl.case_B("cpu", res, B=2), "F": lambda res: pl.case_F("cpu", res, 2),
          "G": lambda res: pl.case_G("cpu", res, 2), "I": lambda res: pl.case_I("cpu", res),
-         "K": lambda res: pl.case_K("cpu", res, B=2), "D": lambda res: pl.case_D("cpu", res)}
+         "K": lambda res: pl.case_K("cpu", res, B=2), "D": lambda res: pl.case_D("cpu", res),
+         "O": lambda res: pl.case_O("cpu", res, B=3)}
 
 
 @pytest.fixture(autouse=True)

@@ -19,7 +19,7 @@ from tpufem_torch.mesher import WingMeshResolution
 RES = WingMeshResolution(8, 12, 2, te_floor_frac=0.006, spacing="le")
 P4 = np.array([[1.2, 0.35, 10.0, 0.10], [1.8, 0.25, 25.0, 0.07]])
 PRESSURE = 5e3
-KW = {"tol": 1e-8, "maxiter": 2000}
+KW = {"tol": 1e-8, "maxiter": 2000, "outer_f64": True}
 # what each case changes in (params4, pressure, material)
 CHANGES = {
     "pressure": (P4, 2 * PRESSURE, Material()),

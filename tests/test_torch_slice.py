@@ -53,7 +53,7 @@ REPO = Path(__file__).resolve().parents[1]
 def solved():
     res = WingMeshResolution(12, 10, 3, te_floor_frac=0.006, spacing="le")
     solver = WingStencilT(res, device="cpu")
-    out = solver.solve(P4, pressure=PRESSURE, tol=TOL, maxiter=2000)
+    out = solver.solve(P4, pressure=PRESSURE, tol=TOL, maxiter=2000, outer_f64=True)
     res_j = jmesher.WingMeshResolution(12, 10, 3, te_floor_frac=0.006, spacing="le")
     return solver, out, res_j, JWingStencilT(res_j, dtype=jnp.float32)
 

@@ -8,6 +8,7 @@ dtype outside the tensor cores."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
@@ -22,3 +23,21 @@ def resolve_device(device="cuda",
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {str(device)!r}: no CUDA device here; {hint}")
     return dev
+
+
+def float_dtype(dtype) -> torch.dtype:
+    """torch.float32 or torch.float64 for `dtype` in any of tpufem's
+    spellings: a torch dtype, or anything numpy reads as float32 / float64
+    (np.float64, "float64", tpufem's jnp.float64). Raises ValueError on any
+    other dtype."""
+    if isinstance(dtype, torch.dtype):
+        out = dtype
+    else:
+        try:
+            out = {np.dtype(np.float32): torch.float32,
+                   np.dtype(np.float64): torch.float64}.get(np.dtype(dtype))
+        except TypeError:
+            out = None
+    if out not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype {dtype!r}: float32 or float64 only")
+    return out

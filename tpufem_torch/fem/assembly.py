@@ -8,6 +8,10 @@ Dirichlet mask, element forces, the per-node sum in the plan's fixed order
 and the Dirichlet identity, with the element forces never written to device
 memory. On a CPU tensor it is the plain composition: the mask,
 ``tet4_element_force_plain``, ``csr_segment_sum_plain``, the identity.
+
+``stiffness_apply_t`` is the same function for B cases of one topology with
+the case axis last ((N,3,B), tpufem's ``multigrid.force_t`` with its mask):
+one launch of kernel O (``csrc/tet4_force_t.cu``) on the card.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from tpufem_torch.ops.kernels import check, load_kernels, wants_grad
 
 SLOTS = 1536  # incident entries per block of kernel D (36 KB of f64 forces)
 SLOT_LIMIT = 2048  # what a block's 48 KB of shared memory hold in f64: the highest valence taken
+O_SMEM = 48 * 1024  # the shared memory a block of kernel O fills with its rows' forces, at most
+MAX_SMEM = 232448  # a Hopper block's most dynamic shared memory
 
 
 class IncidencePlan(NamedTuple):
@@ -51,8 +57,8 @@ class IncidencePlan(NamedTuple):
     overlap: float  # len(btet) / T: how often a tet is evaluated (1 to k)
 
 
-def build_incidence(tets, num_nodes: int, device="cpu", slots: int | None = None
-                    ) -> IncidencePlan:
+def build_incidence(tets, num_nodes: int, device="cpu", slots: int | None = None,
+                    slot_limit: int | None = None) -> IncidencePlan:
     """The incidence plan of `tets` (T,k) over `num_nodes` nodes, built on
     the host once per topology; `slots` (default SLOTS) caps a block's rows.
 
@@ -63,7 +69,8 @@ def build_incidence(tets, num_nodes: int, device="cpu", slots: int | None = None
     greedily into contiguous ranges of at most `slots` rows (a node of higher
     valence gets a block of its own, up to SLOT_LIMIT rows, what a block's
     shared memory holds; beyond that it raises), and each range lists the
-    tets that touch it.
+    tets that touch it. `slot_limit` (default SLOT_LIMIT) is that most for
+    another kernel's blocks (kernel O's: incidence_t).
     """
     if isinstance(tets, torch.Tensor):
         tets = tets.cpu().numpy()
@@ -71,9 +78,10 @@ def build_incidence(tets, num_nodes: int, device="cpu", slots: int | None = None
     k = tets.shape[1]
     order, starts, flat = csr_arrays(tets, num_nodes)
     slots = max(SLOTS if slots is None else slots, int(np.diff(starts).max(initial=0)))
-    if slots > SLOT_LIMIT:
-        raise ValueError(f"a node with {slots} incident tets: kernel D's blocks hold at most "
-                         f"{SLOT_LIMIT}")
+    slot_limit = SLOT_LIMIT if slot_limit is None else slot_limit
+    if slots > slot_limit:
+        raise ValueError(f"a node with {slots} incident tets: the kernel's blocks hold at most "
+                         f"{slot_limit}")
     pos = np.empty(len(order), np.int32)
     pos[order] = np.arange(len(order), dtype=np.int32)
     bnode = [0]
@@ -127,13 +135,14 @@ def stiffness_apply_plain(grads, vols, tets, x, lam, mu, plan: IncidencePlan, fr
 
 def check_incidence_inputs(name: str, geo: dict, tets, x, plan, free,
                            aligned: dict | None = None, kind=IncidencePlan,
-                           builder: str = "build_incidence") -> None:
+                           builder: str = "build_incidence", lanes: int | None = None) -> None:
     """Raise unless kernel `name` (an operator over a connectivity's plan:
-    D, N) takes these inputs as they are: the per-tet geometry `geo`
-    ({label: (tensor, its shape)}), x (N,3) and free (N,3) or None of one
+    D, N, O) takes these inputs as they are: the per-tet geometry `geo`
+    ({label: (tensor, its shape)}), x (N,3) (or (N,3,lanes) where `lanes` is
+    given) and free (N,3) or None of one
     float dtype (f32 or f64), tets (T,k) int32 and its plan over N nodes (a
     `kind`, made by `builder`), all contiguous on one device, the tensors of
-    `aligned` ({label: tensor}) 16-byte aligned, kT and 3N below 2^31 (the
+    `aligned` ({label: tensor}) 16-byte aligned, kT and x's size below 2^31 (the
     kernel indexes in 32 bits), and none of them wanting a gradient (the
     kernel has no backward). The plan's values are trusted; its tensors,
     which its builder makes together, stand checked by its `order`."""
@@ -146,10 +155,10 @@ def check_incidence_inputs(name: str, geo: dict, tets, x, plan, free,
     if not isinstance(plan, kind):
         raise TypeError(f"kernel {name} takes a {kind.__name__} ({builder}), not "
                         f"{type(plan).__name__}")
-    T = tets.shape[0]
-    N = x.shape[0] if x.dim() == 2 else -1
+    N = x.shape[0] if x.dim() == (2 if lanes is None else 3) else -1
+    xshape = (N, 3) if lanes is None else (N, 3, lanes)
     if (any(t.shape != shape for t, shape in geo.values()) or tets.dim() != 2
-            or x.shape != (N, 3) or (free is not None and free.shape != (N, 3))):
+            or x.shape != xshape or (free is not None and free.shape != (N, 3))):
         raise ValueError(f"kernel {name}: bad shapes "
                          + " ".join(f"{k} {tuple(t.shape)}" for k, (t, _) in geo.items())
                          + f" tets {tuple(tets.shape)} x {tuple(x.shape)} free "
@@ -166,7 +175,7 @@ def check_incidence_inputs(name: str, geo: dict, tets, x, plan, free,
     if aligned and any(t.data_ptr() % 16 for t in aligned.values()):
         raise ValueError(f"kernel {name} loads {', '.join(aligned)} 16 bytes at a time: not "
                          f"aligned")
-    if tets.numel() >= 2**31 or 3 * N >= 2**31:
+    if tets.numel() >= 2**31 or x.numel() >= 2**31:
         raise ValueError(f"kernel {name} indexes in 32 bits: the arrays are too large")
     if any(wants_grad(t) for t in floats):
         raise ValueError(f"kernel {name} has no backward: a CUDA input requires_grad (the plain "
@@ -209,6 +218,92 @@ def stiffness_apply(grads, vols, tets, x, lam, mu, plan: IncidencePlan, free=Non
 
 
 stiffness_apply.launches = 0
+
+
+# ------------------------------------------------- the trailing-batch operator
+
+
+def incidence_t(tets, num_nodes: int, lanes: int, dtype, device="cpu",
+                smem: int = O_SMEM) -> IncidencePlan:
+    """Kernel O's incidence plan of `tets` for `lanes` cases in `dtype`: the
+    nodes cut into blocks of at most `smem` bytes of forces (rows x 3 x
+    lanes values), never fewer rows than the highest valence, raising where
+    that valence's forces overflow a block's shared memory."""
+    row = 3 * lanes * torch.empty((), dtype=dtype).element_size()
+    return build_incidence(tets, num_nodes, device, slots=max(1, smem // row),
+                           slot_limit=MAX_SMEM // row)
+
+
+def tet4_element_force_t_plain(grads, vols, tets, u, lam, mu) -> torch.Tensor:
+    """The per-tet half of kernel O's plain version, tpufem's force_t with
+    the case axis last: fe (T*4, 3*B) = vol * sigma . g_a per corner and
+    lane, from grads (T,4,3,B), vols (T,B) and u (N,3,B)."""
+    ue = u[tets]  # (T,4,3,B)
+    H = (grads[:, :, :, None, :] * ue[:, :, None, :, :]).sum(dim=1)  # (T,3,3,B)
+    eps = 0.5 * (H + H.transpose(1, 2))
+    tr = eps[:, 0, 0] + eps[:, 1, 1] + eps[:, 2, 2]  # (T,B)
+    sig = 2.0 * mu * eps
+    for d in range(3):
+        sig[:, d, d] += lam * tr
+    fe = vols[:, None, None, :] * (sig[:, None, :, :, :] * grads[:, :, None, :, :]).sum(dim=3)
+    return fe.reshape(-1, 3 * u.shape[-1])
+
+
+def stiffness_apply_t_plain(grads, vols, tets, x, lam, mu, plan, free=None):
+    """Plain PyTorch version of kernel O: y (N,3,B) = K(x * free) * free +
+    x * (1 - free) per lane, or K x where `free` (N,3) is None; each node's
+    element forces added in the plan's order from zero (any CSR plan of
+    tets.reshape(-1))."""
+    fr = None if free is None else free[:, :, None]
+    u = x if fr is None else x * fr
+    y = csr_segment_sum_plain(tet4_element_force_t_plain(grads, vols, tets, u, lam, mu),
+                              plan).reshape(x.shape)
+    return y if fr is None else y * fr + x * (1.0 - fr)
+
+
+def check_stiffness_apply_t_inputs(grads, vols, tets, x, plan: IncidencePlan, free) -> None:
+    """Raise unless kernel O takes these inputs as they are
+    (check_incidence_inputs): grads (T,4,3,B), vols (T,B), tets (T,4), x
+    (N,3,B); tets and the plan's pos 16-byte aligned; the plan's blocks
+    within a block's shared memory at B lanes (incidence_t)."""
+    T = tets.shape[0]
+    B = x.shape[-1] if x.dim() == 3 else -1
+    if tets.shape[1:] != (4,):
+        raise ValueError(f"kernel O takes (T,4) tets, got {tuple(tets.shape)}")
+    check_incidence_inputs("O", {"grads": (grads, (T, 4, 3, B)), "vols": (vols, (T, B))}, tets,
+                           x, plan, free, {"tets": tets, "pos": plan.pos},
+                           builder="incidence_t", lanes=B)
+    if plan.slots * 3 * B * x.element_size() > MAX_SMEM:
+        raise ValueError(f"kernel O: a plan of {plan.slots} rows a block does not fit a block's "
+                         f"shared memory at B={B} (incidence_t cuts it for B and the dtype)")
+
+
+def stiffness_apply_t(grads, vols, tets, x, lam, mu, plan: IncidencePlan, free=None
+                      ) -> torch.Tensor:
+    """The trailing-batch operator apply, B cases of one topology in (N,3,B)
+    layout: y = K_b(x * free) * free + x * (1 - free) per lane b, or K_b x
+    where `free` (N,3) is None, over `plan` (``incidence_t(tets, N, B,
+    dtype)``). A CPU tensor takes stiffness_apply_t_plain; a CUDA tensor
+    launches kernel O, one launch for the whole function, or raises
+    (check_stiffness_apply_t_inputs). lam and mu are Python floats."""
+    if not x.is_cuda:
+        return stiffness_apply_t_plain(grads, vols, tets, x, lam, mu, plan, free)
+    check_stiffness_apply_t_inputs(grads, vols, tets, x, plan, free)
+    y = torch.empty_like(x)
+    lib = load_kernels()
+    fn = (lib.tpufem_stiffness_apply_t_f64 if x.dtype == torch.float64
+          else lib.tpufem_stiffness_apply_t_f32)
+    status = fn(grads.data_ptr(), vols.data_ptr(), tets.data_ptr(), plan.pos.data_ptr(),
+                plan.btet.data_ptr(), plan.bt_start.data_ptr(), plan.bnode.data_ptr(),
+                plan.starts.data_ptr(), x.data_ptr(), None if free is None else free.data_ptr(),
+                y.data_ptr(), plan.bnode.shape[0] - 1, plan.slots, x.shape[-1], float(lam),
+                float(mu), torch.cuda.current_stream(x.device).cuda_stream)
+    check(status, "stiffness_apply_t")
+    stiffness_apply_t.launches += 1
+    return y
+
+
+stiffness_apply_t.launches = 0
 
 
 def elastic_force(grads, vols, tets, u_nodes, lam, mu, plan: IncidencePlan) -> torch.Tensor:

@@ -181,7 +181,7 @@ class WingBuckling(GridBlockSolver):
         if self._u0 is not None:
             return
         out = self.st.solve(self.p4[None], pressure=self.pressure, material=self.material,
-                            tol=1e-8, maxiter=2000)
+                            tol=1e-8, maxiter=2000, outer_f64=True)
         if not bool(out.converged.all()):
             raise RuntimeError(
                 f"static pre-solve did not converge: rel {float(out.rel_residual.max()):.2e}")

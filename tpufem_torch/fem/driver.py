@@ -97,6 +97,21 @@ def _system(nodes, tets, upper, free, plans, pressure: float, lam: float, mu: fl
     return grads, vols, b, A
 
 
+def line_preconditioner(plans, tets, nodes, grads, vols, lam, mu, free):
+    """The thickness-line block-Jacobi M(r) of `plans`["line"], plus the RBM
+    coarse correction where `plans` has "rbm"; None on a mesh without a line
+    plan (unstructured: Jacobi)."""
+    line = plans.get("line")
+    if line is None:
+        return None
+    M = make_line_preconditioner(line, line_blocks(line, grads, vols, lam, mu, free))
+    rbm = plans.get("rbm")
+    if rbm is not None:
+        Ac_inv, dvec = rbm_coarse_inverse(rbm, tets, nodes, grads, vols, lam, mu, free)
+        M = make_rbm_two_level(M, Ac_inv, rbm, dvec, free)
+    return M
+
+
 def residual64_core(nodes64, tets, upper, free64, plans, pressure, lam, mu, x64):
     """True f64 residual b - K x and its relative norm, in native f64 on the
     device (tpufem's emulated TPU f64 ran it in its own dispatch)."""
@@ -141,13 +156,8 @@ def solve_core(nodes64, tets, upper, free64, plans, pressure: float, lam: float,
     """
     nodes, free = nodes64.to(dtype), free64.to(dtype)
     grads, vols, b, A = _system(nodes, tets, upper, free, plans, pressure, lam, mu)
-    line = plans.get("line")
-    if line is not None:
-        M = make_line_preconditioner(line, line_blocks(line, grads, vols, lam, mu, free))
-        rbm = plans.get("rbm")
-        if rbm is not None:
-            Ac_inv, dvec = rbm_coarse_inverse(rbm, tets, nodes, grads, vols, lam, mu, free)
-            M = make_rbm_two_level(M, Ac_inv, rbm, dvec, free)
+    M = line_preconditioner(plans, tets, nodes, grads, vols, lam, mu, free)
+    if M is not None:
 
         def solve(rhs):
             return pcg(A, rhs, M=M, tol=tol, maxiter=maxiter)

@@ -329,7 +329,7 @@ class WingNonlinear(GridBlockSolver):
         # newton_tol where that is looser: f64's own floor on a fine wing is
         # above 1e-8 (DOF100K: 3.3e-8), where tpufem's fixed 1e-8 would fail
         lin = self.st.solve(self.p4[None], pressure=self.pressure, material=self.material,
-                            tol=max(1e-8, newton_tol), maxiter=4000)
+                            tol=max(1e-8, newton_tol), maxiter=4000, outer_f64=True)
         if not bool(lin.converged.all()):
             raise RuntimeError("linear reference solve did not converge")
 

@@ -407,6 +407,34 @@ def weld_reduce(res: WingMeshResolution, y):
     return y
 
 
+def root_mask(shape, dtype, device="cpu"):
+    """(1,1,1,1,NJ) Dirichlet mask zeroing j = 0."""
+    m = torch.ones((shape[-1],), dtype=dtype, device=device)
+    m[0] = 0.0
+    return m[None, None, None, None, :]
+
+
+def stencil_apply(res: WingMeshResolution, C, u, free):
+    """y = A_w u: welded + Dirichlet-wrapped stencil SpMV over the assembled
+    coefficients C (assemble_stencil), plain torch: tpufem's cross-check of
+    strain_apply (the CG's operator).
+
+    u: (3,B,NI,NK,NJ) active form (zero at duplicates and fixed dofs encoded
+    by `free`, a broadcastable 0/1 mask). Returns same-shape y with identity
+    on fixed dofs.
+    """
+    us = weld_spread(res, u * free)
+    NI, NK, NJ = us.shape[2], us.shape[3], us.shape[4]
+    up = torch.nn.functional.pad(us, (1, 1, 1, 1, 1, 1))
+    y = None
+    for (di, dj, dk), Co in C.items():
+        sl = up[:, :, 1 + di : 1 + di + NI, 1 + dk : 1 + dk + NK, 1 + dj : 1 + dj + NJ]
+        term = (Co * sl[None]).sum(dim=1)  # (3,B,NI,NK,NJ)
+        y = term if y is None else y + term
+    y = weld_reduce(res, y) * free
+    return y + u * (1.0 - free)
+
+
 def to_grid(res: WingMeshResolution, v_nodes):
     """Welded node vector (N,3,B) -> active grid form (3,B,NI,NK,NJ)."""
     m = grid_meta(res)

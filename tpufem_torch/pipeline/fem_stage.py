@@ -90,7 +90,7 @@ def solve_structured_stencil(
     )
     out = stencil_engine(res, str(device)).solve(
         p4, pressure=config.pressure, material=config.material,
-        tol=config.tol, maxiter=config.maxiter,
+        tol=config.tol, maxiter=config.maxiter, outer_f64=True,
     )
     return FemSolution(
         u=out.u[:, :, 0].cpu().numpy(),

@@ -1,7 +1,7 @@
 """One PyTorch call for the function of each linear hand kernel, on one CUDA
 card: ``torch.sparse.mm`` of the kernel's matrix, assembled on the card, as
 the library yardstick of the kernels that no single PyTorch call computes
-otherwise (B, D, F, G, I, K; N's is profile_tet10.library_matrix, whose
+otherwise (B, D, F, G, I, K, O; N's is profile_tet10.library_matrix, whose
 assembly lives here too).
 
 Two assemblies, each checked against the kernel's plain version on a seeded
@@ -17,7 +17,8 @@ vector (f64, within 1e-12 of the largest entry) before it is timed:
     whose colours all differ, so each probe's output names its column;
   - ``assembled_csr``: a gather operator over a connectivity (D: tet4, one
     point; N: tet10, four Gauss points), the masked stiffness F K F + (I - F)
-    summed from the element matrices of its own inputs.
+    summed from the element matrices of its own inputs; O's B lanes, each so
+    assembled, as one block-diagonal matrix.
 
 Per kernel, at the shape that heads its row of PERF.md section 6 (the
 kernels line's shape in chip_smoke.py), f64: the kernel's device time and
@@ -25,7 +26,7 @@ the library call's (repeated and with the L2 flushed, every device activity,
 torch.profiler), both event times, the matrix's nonzeros and the check.
 H and J have no such call: they are nonlinear in u.
 
-Usage: python -m tpufem_torch.profile_library [--out PATH] [--only B D F G I K]
+Usage: python -m tpufem_torch.profile_library [--out PATH] [--only B D F G I K O]
 """
 
 from __future__ import annotations
@@ -241,7 +242,41 @@ def case_D(device, res=None):
             "x": x, "shape": f"{_grid(res)} wing 0, masked"}
 
 
-CASES = {"B": case_B, "D": case_D, "F": case_F, "G": case_G, "I": case_I, "K": case_K}
+def case_O(device, res=None, B: int = 8):
+    """Kernel O, stiffness_apply_t (masked), at DOF100K B = 8 (the seeded
+    batch), f64: the B lanes' masked stiffness matrices as one block-diagonal
+    matrix, rows and columns in x's (N,3,B) order, (3 n + d) B + b."""
+    from tpufem_torch.fem import assembly as asm
+    from tpufem_torch.mesher import DOF100K
+    from tpufem_torch.profile_batched import operator_inputs_t
+    from tpufem_torch.profile_solve import seeded_batch
+
+    res = res or DOF100K
+    grads, vols, tets, x, free, plan = operator_inputs_t(res, seeded_batch(B), torch.float64,
+                                                         device)
+
+    def matrix():
+        N = x.shape[0]
+        rows, cols, vals = [], [], []
+        for b in range(B):
+            lane = assembled_csr(tets, N, free, LAM, MU,
+                                 lambda t0, t1, b=b: (grads[t0:t1, None, :, :, b],
+                                                      vols[t0:t1, b, None])).to_sparse_coo()
+            r, c = lane.indices()
+            rows.append(r * B + b)
+            cols.append(c * B + b)
+            vals.append(lane.values())
+        return csr_from_triples(torch.cat(rows), torch.cat(cols), torch.cat(vals),
+                                (3 * N * B, 3 * N * B))
+
+    return {"kernel": lambda v: asm.stiffness_apply_t(grads, vols, tets, v, LAM, MU, plan, free),
+            "plain": lambda v: (asm.stiffness_apply_t_plain(grads, vols, tets, v, LAM, MU, plan,
+                                                            free),),
+            "matrix": matrix, "x": x, "shape": f"{_grid(res)} B={B}, masked"}
+
+
+CASES = {"B": case_B, "D": case_D, "F": case_F, "G": case_G, "I": case_I, "K": case_K,
+         "O": case_O}
 
 
 def longest_kernel(fn) -> str:

@@ -152,7 +152,8 @@ def linear_u(res: WingMeshResolution, p4, pressure: float, device) -> torch.Tens
     from tpufem_torch.fem.stencil_mg import WingStencilT
 
     out = WingStencilT(res, device=device).solve(np.asarray(p4, np.float64).reshape(1, 4),
-                                                 pressure=pressure, tol=1e-8, maxiter=4000)
+                                                 pressure=pressure, tol=1e-8, maxiter=4000,
+                                                 outer_f64=True)
     return st.to_grid(res, out.u)
 
 

@@ -48,7 +48,7 @@ def main(argv=None) -> int:
     solver = WingStencilT(DOF100K, device=dev)
     for run in range(3):
         t0 = time.perf_counter()
-        out = solver.solve(p4, tol=1e-6, maxiter=2000)
+        out = solver.solve(p4, tol=1e-6, maxiter=2000, outer_f64=True)
         wall = time.perf_counter() - t0
         tm = solver.last_timing
         print(f"[unprofiled {run}] iters {out.iters} wall {wall:.3f} s = {wall / args.batch:.4f} "
@@ -56,7 +56,7 @@ def main(argv=None) -> int:
               f"({tm['solve_s'] / max(out.iters, 1) * 1e3:.3f} ms per CG iteration), recover "
               f"{tm['recover_s']:.3f} s")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = solver.solve(p4, tol=1e-6, maxiter=2000)
+        out = solver.solve(p4, tol=1e-6, maxiter=2000, outer_f64=True)
         torch.cuda.synchronize()
     tm = solver.last_timing
     dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
