@@ -155,7 +155,11 @@ trained checkpoint exists). Along the way:
      within 1e-12 and f32 within 1e-5 of the largest entry, masked and
      unmasked, bitwise repeatable, exactly 1 launch and 1 device activity
      per apply, event / plain / device times (repeated and flushed) against
-     the byte bound; then, launch counters zeroed: (b) WingBatchT(DOF100K,
+     the byte bound, each shape's plan (its tiles, blocks and lane groups,
+     how often a tet is evaluated, ghost share, halo share counted from the
+     plan (0: the kernel launches no cluster and no row leaves its block),
+     shared memory) and kernel O's ptxas registers and spills; then, launch
+     counters zeroed: (b) WingBatchT(DOF100K,
      float64, mg_levels=None) and the stencil engine (outer_f64) at tol
      1e-7: converged, TRUE f64 rel <= 2e-7 recomputed on the CPU, u within
      1e-5; (c) at MEDIUM the two-level and the multigrid WingBatchT, f64, tol
@@ -176,7 +180,9 @@ trained checkpoint exists). Along the way:
      version, or summed from D's element matrices; O's B lanes as one
      block-diagonal matrix), held to the plain version to 1e-12 (f64), timed
      beside the kernel at the shape that heads the kernel's entry: its
-     `library_ms` and `library`; H and J, nonlinear in u, say so in
+     `library_ms` and `library`; for B, D, F, G and O the matrix cast to f32
+     too, held to the f32 plain version to 1e-5 and timed beside the f32
+     kernel (`library["f32"]`); H and J, nonlinear in u, say so in
      `library_note`;
  12. prints the wall time of every phase, the peak device memory of the
      phase-3 solve, the training phase, the gather solve, the dynamics, the
@@ -2038,7 +2044,12 @@ def run_batched_engine(dev, state, smi):
         return true_residual_cpu(DOF100K, p4, u.detach().double().cpu(), upper, free, lam, mu)
 
     # ---- 10a. kernel O at each shape it runs at, against its plain version
-    print(f"[kernel O] {smi}", flush=True)
+    from tpufem_torch.ops.kernels import build_info
+
+    o_regs = pb.o_registers(build_info.get("log", ""))
+    print(f"[kernel O] {smi}; ptxas (registers, spill stores, spill loads): {o_regs}", flush=True)
+    require({k.split()[0] for k in o_regs} == {"f32", "f64"},
+            f"10a: no ptxas report of kernel O: {o_regs}")
     orec = {}
     for label, res, batch in pb.cases(p4):
         for r in pb.measure(label, res, batch, dev, lam, mu):
@@ -2047,6 +2058,10 @@ def run_batched_engine(dev, state, smi):
                     f"kernel O {key}: {r['launches']} launches and {r['activities']} device "
                     f"activities per apply, not 1")
             orec[key] = r
+        for dtype in ("f64", "f32"):
+            for mask in ("masked", "unmasked"):
+                require(f"{label} {dtype} {mask}" in orec,
+                        f"10a: kernel O was not checked at {label} {dtype} {mask}")
 
     counters = batched_counters()
     for c in counters.values():
@@ -2193,8 +2208,9 @@ def run_batched_engine(dev, state, smi):
 
     rec64, rec32 = orec[O_HEADLINE], orec[O_HEADLINE.replace("f64", "f32")]
     keys = ("device_us", "device_us_cold", "share", "share_repeated", "activities", "bound_us",
-            "bound_by", "max_abs_err", "err_vs_plain", "ms", "plain_ms", "overlap", "blocks",
-            "slots", "plan_bytes", "T", "N", "B")
+            "bound_by", "max_abs_err", "err_vs_plain", "ms", "plain_ms", "overlap", "tile",
+            "tiles", "blocks", "group", "ghost_share", "halo_share", "rows",
+            "nodes", "closure", "smem", "plan_bytes", "T", "N", "B")
     return {
         "name": "stiffness_apply_t", "route": "cuda", "source": O_SOURCE, "replaces": O_REPLACES,
         "kernel_letter": "O", "launches": total["stiffness_apply_t"],
@@ -2203,7 +2219,7 @@ def run_batched_engine(dev, state, smi):
         **{k: rec64[k] for k in ("max_abs_err", "ms", "plain_ms")},
         "bound_ms": rec64["bound_us"] / 1e3, "bound_by": rec64["bound_by"], "library_ms": None,
         **{k: rec64[k] for k in keys},
-        "f32": {k: rec32[k] for k in keys},
+        "f32": {k: rec32[k] for k in keys}, "ptxas": {k: list(v) for k, v in o_regs.items()},
         "shapes": {k: {f: r[f] for f in keys} for k, r in orec.items()},
     }
 

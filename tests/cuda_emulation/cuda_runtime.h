@@ -4,14 +4,20 @@
 // them, __shfl_sync one among the lanes its mask names, __shared__ one copy
 // per kernel, the dynamic shared memory one buffer filled with NaN bytes
 // before each block), the blocks one after another in a seeded shuffled
-// order, so that a schedule's order never decides a result.
+// order, so that a schedule's order never decides a result. The threads are
+// made once a launch and run every block in turn.
 // Device loads and stores, fences and atomics are plain host operations; the
 // rounding intrinsics (__fma_rn) are std::fma.
 // tests/test_torch_tet10_kernels_host.py rewrites each `kernel<<<grid, block,
 // smem, stream>>>(args)` launch into emu_launch and the extern dynamic
 // shared array into emu_smem before it compiles a source.
 #pragma once
+#include <linux/futex.h>
+#include <sys/syscall.h>
+#include <unistd.h>
+
 #include <algorithm>
+#include <climits>
 #include <atomic>
 #include <cmath>
 #include <condition_variable>
@@ -47,6 +53,9 @@ struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct alignas(16) double2 { double x, y; };
 struct alignas(16) int4 { int x, y, z, w; };
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+struct alignas(8) short4 { short x, y, z, w; };
+inline short4 make_short4(short x, short y, short z, short w) { return {x, y, z, w}; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum {
@@ -73,21 +82,28 @@ inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst
 inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline int atomicOr(int* p, int v) { return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST); }
 
+// A generation-counting barrier: a waiter yields a few times, then sleeps on
+// the generation word (a futex) until the last arrival bumps it and wakes
+// every sleeper with one call. (A condition variable's wake-ups of a block's
+// 256 threads, one after another through its mutex, cost milliseconds a
+// barrier; pure spinning starves the other test processes of the CPU.)
 struct EmuBarrier {
-  std::mutex m;
-  std::condition_variable cv;
-  int n, count = 0;
-  long gen = 0;
+  std::atomic<int> count{0};
+  std::atomic<int> gen{0};
+  int n;
   explicit EmuBarrier(int n_) : n(n_) {}
   void wait() {
-    std::unique_lock<std::mutex> l(m);
-    const long g = gen;
-    if (++count == n) {
-      count = 0;
-      ++gen;
-      cv.notify_all();
+    const int g = gen.load(std::memory_order_acquire);
+    if (count.fetch_add(1, std::memory_order_acq_rel) + 1 == n) {
+      count.store(0, std::memory_order_relaxed);
+      gen.fetch_add(1, std::memory_order_release);
+      syscall(SYS_futex, reinterpret_cast<int*>(&gen), FUTEX_WAKE_PRIVATE, INT_MAX, nullptr,
+              nullptr, 0);
     } else {
-      cv.wait(l, [&] { return gen != g; });
+      for (int i = 0; i < 16 && gen.load(std::memory_order_acquire) == g; ++i)
+        std::this_thread::yield();
+      while (gen.load(std::memory_order_acquire) == g)
+        syscall(SYS_futex, reinterpret_cast<int*>(&gen), FUTEX_WAIT_PRIVATE, g, nullptr, nullptr, 0);
     }
   }
 };
@@ -136,21 +152,28 @@ inline void emu_launch(dim3 grid, int threads, const std::function<void()>& body
       for (unsigned x = 0; x < grid.x; ++x) blocks.push_back(dim3(x, y, z));
   std::mt19937 rng(emu_seed++);
   std::shuffle(blocks.begin(), blocks.end(), rng);
-  for (const dim3& b : blocks) {
-    std::memset(emu_smem, 0xff, sizeof(emu_smem));  // NaN where a kernel reads what it never wrote
-    EmuBarrier bar(threads);
-    emu_barrier = &bar;
-    std::vector<std::unique_ptr<EmuWarp>> warps;
-    for (int t = 0; t < threads; t += 32) warps.emplace_back(new EmuWarp());
-    std::vector<std::thread> ts;
-    for (int t = 0; t < threads; ++t)
-      ts.emplace_back([&, t] {
-        threadIdx = dim3(t);
+  // One std::thread per thread of a block, reused for every block in turn:
+  // the threads of one block run together, the blocks one after another. A
+  // barrier of its own (not __syncthreads') closes each block, after which
+  // thread 0 fills the dynamic shared memory with NaN for the next.
+  EmuBarrier bar(threads), boundary(threads);
+  emu_barrier = &bar;
+  std::vector<std::unique_ptr<EmuWarp>> warps;
+  for (int t = 0; t < threads; t += 32) warps.emplace_back(new EmuWarp());
+  std::memset(emu_smem, 0xff, sizeof(emu_smem));  // NaN where a kernel reads what it never wrote
+  std::vector<std::thread> ts;
+  for (int t = 0; t < threads; ++t)
+    ts.emplace_back([&, t] {
+      threadIdx = dim3(t);
+      emu_warp = warps[t / 32].get();
+      emu_lane = t % 32;
+      for (const dim3& b : blocks) {
         blockIdx = b;
-        emu_warp = warps[t / 32].get();
-        emu_lane = t % 32;
         body();
-      });
-    for (auto& th : ts) th.join();
-  }
+        boundary.wait();
+        if (t == 0) std::memset(emu_smem, 0xff, sizeof(emu_smem));
+        boundary.wait();
+      }
+    });
+  for (auto& th : ts) th.join();
 }

@@ -523,18 +523,48 @@ def test_stiffness_apply_t_matches_plain(cuda, masked, dtype):
     from tpufem_torch.profile_batched import check_apply_t, operator_inputs_t
 
     for res, B in ((COARSE, 3), (WingMeshResolution(16, 16, 4, 0.006, "le"), 8)):
-        g64, v64, tets, x64, f64, _ = operator_inputs_t(res, seeded_batch(8)[:B], torch.float64,
-                                                         cuda)
-        plan64 = tas.incidence_t(tets.cpu(), x64.shape[0], B, torch.float64, cuda)
+        g64, v64, tets, x64, f64, plan64 = operator_inputs_t(res, seeded_batch(8)[:B],
+                                                              torch.float64, cuda)
         ref = tas.stiffness_apply_t_plain(g64, v64, tets, x64, LAM, MU, plan64,
                                           f64 if masked else None)
         g, v, x = g64.to(dtype), v64.to(dtype), x64.to(dtype)
         free = f64.to(dtype) if masked else None
-        plan = tas.incidence_t(tets.cpu(), x.shape[0], B, dtype, cuda)
+        plan = operator_inputs_t(res, seeded_batch(8)[:B], dtype, cuda)[-1]
         check_apply_t(g, v, tets, x, free, plan, LAM, MU, ref)
         r = device_time(lambda: tas.stiffness_apply_t(g, v, tets, x, LAM, MU, plan, free),
                         "stiffness_apply_t")
         assert r["launches"] == 1 and r["activities"] == 1, r
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("lanes", [1, 5, 8])
+def test_stiffness_apply_t_at_every_level(cuda, lanes, dtype):
+    """Kernel O on the plan force_plan_t cuts at every level of DOF100K's
+    hierarchy that applies it and at MEDIUM (the two-level engine), masked
+    and unmasked, against its plain version (check_apply_t: f64 1e-12, f32
+    1e-5 of the plain f32 version, two applies bitwise equal), and equal to
+    itself bit for bit over a plan of one-column tiles (another cut, the
+    same order)."""
+    from tpufem_torch.fem.multigrid import node_columns
+    from tpufem_torch.fem.stencil_mg import hierarchy_resolutions
+    from tpufem_torch.mesher import wing_topology
+    from tpufem_torch.profile_batched import check_apply_t, operator_inputs_t
+
+    for res in (*hierarchy_resolutions(DOF100K)[:-1], MEDIUM):
+        g64, v64, tets, x64, f64, _ = operator_inputs_t(res, seeded_batch(8)[:lanes],
+                                                         torch.float64, cuda)
+        g, v, x, fr = g64.to(dtype), v64.to(dtype), x64.to(dtype), f64.to(dtype)
+        plan = operator_inputs_t(res, seeded_batch(8)[:lanes], dtype, cuda)[-1]
+        topo = wing_topology(res)
+        column = tas.force_plan_t(topo.tets, topo.num_nodes, lanes, dtype, cuda,
+                                  columns=node_columns(topo, res), tile=(1, 1))
+        for masked in (True, False):
+            ref = tas.stiffness_apply_t_plain(g64, v64, tets, x64, LAM, MU, plan,
+                                              f64 if masked else None)
+            free = fr if masked else None
+            check_apply_t(g, v, tets, x, free, plan, LAM, MU, ref)
+            assert torch.equal(tas.stiffness_apply_t(g, v, tets, x, LAM, MU, plan, free),
+                               tas.stiffness_apply_t(g, v, tets, x, LAM, MU, column, free))
 
 
 def test_stiffness_apply_at_the_valence_cap(cuda):

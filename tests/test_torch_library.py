@@ -3,8 +3,10 @@ matrix times a seeded vector equals the kernel's plain version to 1e-12 of
 its largest entry (f64), at small grids with a floored and a sharp trailing
 edge (the welds), for kernels B, F, G, I and K (probed through the plain
 version by grid_probe_csr), D (assembled_csr from its element matrices) and
-O (D's assembly per lane, as one block-diagonal matrix, B = 3);
-and the probe refuses a function that reads past the colouring's reach."""
+O (D's assembly per lane, as one block-diagonal matrix, B = 3); for B, D,
+F, G and O also the matrix cast to f32 against the f32 plain version (1e-5
+of its largest entry, library_record raises beyond); and the probe refuses
+a function that reads past the colouring's reach."""
 
 import pytest
 import torch
@@ -35,6 +37,8 @@ def test_library_matrix_computes_the_kernels_function(kernel, grid):
     rec = pl.library_record(case, timed=False)  # raises beyond 1e-12
     assert rec["max_abs_err"] <= 1e-12 * rec["scale"] and rec["scale"] > 0
     assert rec["nnz"] > 0 and rec["rows"] == sum(o.numel() for o in case["plain"](case["x"]))
+    if "f32" in case:
+        assert rec["f32"]["max_abs_err"] <= 1e-5 * rec["f32"]["scale"]
 
 
 def test_probe_refuses_a_reach_past_one_node():

@@ -33,6 +33,7 @@ from tpufem_torch.fem.multigrid import (
     grads_vols_t,
     line_apply_t,
     line_blocks_t,
+    node_columns,
     nodes_t,
     rbm_apply_t,
     rbm_setup_t,
@@ -110,9 +111,10 @@ class WingBatchT:
         free = np.ones((self.num_nodes, 3), np.float64)
         free[self.sets.nroot_nodes] = 0.0
         self.free64 = torch.as_tensor(free, device=self.device)  # (N,3)
-        # kernel O's operands: int32 tets and its incidence plans by lane count
+        # kernel O's operands: int32 tets and its tile plans by lane count and dtype
         self.tets32 = torch.as_tensor(topo.tets.astype(np.int32), device=self.device)
-        self.force_plans = LanePlans(topo.tets, self.num_nodes, self.device)
+        self.force_plans = LanePlans(topo.tets, self.num_nodes, self.device,
+                                     node_columns(topo, res))
 
         self.mg = None
         if mg_levels != 0:

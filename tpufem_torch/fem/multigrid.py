@@ -43,7 +43,7 @@ from tpufem_torch.device import resolve_device
 from tpufem_torch.fem.assembly import (
     IncidencePlan,
     build_incidence,
-    incidence_t,
+    force_plan_t,
     stiffness_apply_t,
 )
 from tpufem_torch.fem.precond import (
@@ -282,21 +282,31 @@ def grads_vols_t(nodes, tets):
     return torch.cat([g0, g123], dim=1).contiguous(), vols.contiguous()
 
 
-class LanePlans:
-    """Kernel O's incidence plans of one topology on `device`, made once per
-    (lanes, dtype) (``assembly.incidence_t``); on the CPU one CSR plan of
-    the tets serves every lane count (the plain version reads only that)."""
+def node_columns(topo, res: WingMeshResolution) -> np.ndarray:
+    """(N,2) the (chord, span) station column of each node of a structured
+    wing: kernel O's plan cuts the nodes into tiles of these columns."""
+    NJ = res.n_span + 1
+    return np.stack([topo.station_id // NJ, topo.station_id % NJ], axis=1)
 
-    def __init__(self, tets: np.ndarray, num_nodes: int, device):
+
+class LanePlans:
+    """Kernel O's plans of one topology on `device`, made once per (lanes,
+    dtype) (``assembly.force_plan_t``, tiles of the wing's station `columns`,
+    node_columns); on the CPU one CSR plan of the tets serves every lane
+    count (the plain version reads only that)."""
+
+    def __init__(self, tets: np.ndarray, num_nodes: int, device, columns: np.ndarray):
         self.tets = np.asarray(tets)
         self.num_nodes = int(num_nodes)
         self.device = torch.device(device)
+        self.columns = columns
         self._plans: dict = {}
 
-    def __call__(self, lanes: int, dtype) -> IncidencePlan:
+    def __call__(self, lanes: int, dtype):
         key = (lanes, dtype) if self.device.type == "cuda" else None
         if key not in self._plans:
-            self._plans[key] = (incidence_t(self.tets, self.num_nodes, lanes, dtype, self.device)
+            self._plans[key] = (force_plan_t(self.tets, self.num_nodes, lanes, dtype,
+                                             self.device, columns=self.columns)
                                 if key is not None
                                 else csr_plan(self.tets, self.num_nodes, self.device))
         return self._plans[key]
@@ -483,7 +493,7 @@ class WingMGT:
                 "basis": torch.as_tensor(lh.topo.node_basis, dtype=torch.float64, device=dev),
                 "te_floor": lh.topo.te_floor,
                 "tets": torch.as_tensor(tets, device=dev),
-                "plans": LanePlans(tets, lh.topo.num_nodes, dev),
+                "plans": LanePlans(tets, lh.topo.num_nodes, dev, node_columns(lh.topo, lh.res)),
                 "free": torch.as_tensor(lh.free3, dtype=dtype, device=dev),
                 "line": plan_device_arrays(lh.plan, dev),
                 "num_nodes": lh.topo.num_nodes,

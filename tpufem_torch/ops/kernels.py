@@ -59,12 +59,10 @@ _SIGNATURES = {
                                                ctypes.c_double, _P],
     "tpufem_stiffness_apply_f64": [_P] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_double,
                                                ctypes.c_double, _P],
-    # (grads, vols, tets, pos, btet, bt_start, bnode, starts, x, free or null, y, n_blocks,
-    #  slots, B, lam, mu, stream)
-    "tpufem_stiffness_apply_t_f32": [_P] * 11 + [ctypes.c_int] * 3 + [ctypes.c_double] * 2
-    + [_P],
-    "tpufem_stiffness_apply_t_f64": [_P] * 11 + [ctypes.c_int] * 3 + [ctypes.c_double] * 2
-    + [_P],
+    # (grads, vols, x, free or null, y, plan (host array of 12 device pointers), dims (host
+    #  array of 7 ints), lam, mu, stream)
+    "tpufem_stiffness_apply_t_tiled_f32": [_P] * 7 + [ctypes.c_double] * 2 + [_P],
+    "tpufem_stiffness_apply_t_tiled_f64": [_P] * 7 + [ctypes.c_double] * 2 + [_P],
     # (Jinv, vols, ttet, tstart, dst, inode, istart, irow, hnode, hrow, hslot, cnode, cstart,
     #  lnode, x, free or null, y, halo, n_blocks, n_halo, rows, closure, lam, mu, stream)
     "tpufem_tet10_force_tiled_f32": [_P] * 18 + [ctypes.c_int] * 4 + [ctypes.c_double] * 2

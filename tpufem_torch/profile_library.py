@@ -23,7 +23,9 @@ vector (f64, within 1e-12 of the largest entry) before it is timed:
 Per kernel, at the shape that heads its row of PERF.md section 6 (the
 kernels line's shape in chip_smoke.py), f64: the kernel's device time and
 the library call's (repeated and with the L2 flushed, every device activity,
-torch.profiler), both event times, the matrix's nonzeros and the check.
+torch.profiler), both event times, the matrix's nonzeros and the check; for
+B, D, F, G and O the same again in f32, the f64 matrix cast to f32 and held
+to the f32 plain version within 1e-5 of its largest entry.
 H and J have no such call: they are nonlinear in u.
 
 Usage: python -m tpufem_torch.profile_library [--out PATH] [--only B D F G I K O]
@@ -163,9 +165,15 @@ def case_B(device, res=None, B: int = 8):
 
     res = res or DOF100K
     geo, u, free = operator_inputs(res, seeded_batch(B), torch.float64, device)
+
+    def f32():
+        geo32, _, free32 = operator_inputs(res, seeded_batch(B), torch.float32, device)
+        return (lambda x: st.strain_apply(res, geo32, x, free32, LAM, MU),
+                lambda x: (st.strain_apply_plain(res, geo32, x, free32, LAM, MU),))
+
     return {"kernel": lambda x: st.strain_apply(res, geo, x, free, LAM, MU),
             "plain": lambda x: (st.strain_apply_plain(res, geo, x, free, LAM, MU),),
-            "x": u, "cells": (False,), "shape": f"{_grid(res)} B={B}"}
+            "x": u, "cells": (False,), "shape": f"{_grid(res)} B={B}", "f32": f32}
 
 
 def case_G(device, res=None, q: int = 12):
@@ -175,9 +183,15 @@ def case_G(device, res=None, q: int = 12):
 
     res = res or CLI_RES
     geo, _, sig, x, free = geometric_inputs(res, q, device)
+
+    def f32():
+        geo32, sig32, free32 = tuple(t.float() for t in geo), sig.float(), free.float()
+        return (lambda v: bk.geom_apply(res, geo32, sig32, v, free32),
+                lambda v: (bk.geom_apply_plain(res, geo32, sig32, v, free32),))
+
     return {"kernel": lambda v: bk.geom_apply(res, geo, sig, v, free),
             "plain": lambda v: (bk.geom_apply_plain(res, geo, sig, v, free),),
-            "x": x, "cells": (False,), "shape": f"{_grid(res)} q={q}"}
+            "x": x, "cells": (False,), "shape": f"{_grid(res)} q={q}", "f32": f32}
 
 
 def case_F(device, res=None, q: int = 16):
@@ -188,9 +202,15 @@ def case_F(device, res=None, q: int = 16):
 
     res = res or CLI_RES
     geo, u0, _, _, _ = geometric_inputs(res, q, device)
+
+    def f32():
+        geo32 = tuple(t.float() for t in geo)
+        return (lambda v: bk.element_stress(res, geo32, v, LAM, MU),
+                lambda v: (bk.element_stress_plain(res, geo32, v, LAM, MU),))
+
     return {"kernel": lambda v: bk.element_stress(res, geo, v, LAM, MU),
             "plain": lambda v: (bk.element_stress_plain(res, geo, v, LAM, MU),),
-            "x": u0, "cells": (True,), "shape": f"{_grid(res)} q={q}"}
+            "x": u0, "cells": (True,), "shape": f"{_grid(res)} q={q}", "f32": f32}
 
 
 def case_I(device, res=None):
@@ -233,13 +253,21 @@ def case_D(device, res=None):
     root = build_boundary_sets(mesh).nroot_nodes
     grads, vols, tets, x, free, plan = operator_inputs(mesh.nodes, mesh.tets, root,
                                                        torch.float64, device)
+
+    def f32():
+        g32, v32, _, _, free32, _ = operator_inputs(mesh.nodes, mesh.tets, root, torch.float32,
+                                                    device)
+        return (lambda v: asm.stiffness_apply(g32, v32, tets, v, LAM, MU, plan, free32),
+                lambda v: (asm.stiffness_apply_plain(g32, v32, tets, v, LAM, MU, plan,
+                                                     free32),))
+
     return {"kernel": lambda v: asm.stiffness_apply(grads, vols, tets, v, LAM, MU, plan, free),
             "plain": lambda v: (asm.stiffness_apply_plain(grads, vols, tets, v, LAM, MU, plan,
                                                           free),),
             "matrix": lambda: assembled_csr(
                 tets, x.shape[0], free, LAM, MU,
                 lambda t0, t1: (grads[t0:t1, None], vols[t0:t1, None])),
-            "x": x, "shape": f"{_grid(res)} wing 0, masked"}
+            "x": x, "shape": f"{_grid(res)} wing 0, masked", "f32": f32}
 
 
 def case_O(device, res=None, B: int = 8):
@@ -269,10 +297,17 @@ def case_O(device, res=None, B: int = 8):
         return csr_from_triples(torch.cat(rows), torch.cat(cols), torch.cat(vals),
                                 (3 * N * B, 3 * N * B))
 
+    def f32():
+        g32, v32, _, _, free32, plan32 = operator_inputs_t(res, seeded_batch(B), torch.float32,
+                                                           device)
+        return (lambda v: asm.stiffness_apply_t(g32, v32, tets, v, LAM, MU, plan32, free32),
+                lambda v: (asm.stiffness_apply_t_plain(g32, v32, tets, v, LAM, MU, plan32,
+                                                       free32),))
+
     return {"kernel": lambda v: asm.stiffness_apply_t(grads, vols, tets, v, LAM, MU, plan, free),
             "plain": lambda v: (asm.stiffness_apply_t_plain(grads, vols, tets, v, LAM, MU, plan,
                                                             free),),
-            "matrix": matrix, "x": x, "shape": f"{_grid(res)} B={B}, masked"}
+            "matrix": matrix, "x": x, "shape": f"{_grid(res)} B={B}, masked", "f32": f32}
 
 
 CASES = {"B": case_B, "D": case_D, "F": case_F, "G": case_G, "I": case_I, "K": case_K,
@@ -287,20 +322,23 @@ def longest_kernel(fn) -> str:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(50):  # the tracer may lose a window's first device records
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not dev:
-        raise RuntimeError("the profiler recorded no device activity")
-    return max(dev, key=lambda e: e.time_range.elapsed_us()).name
+    for _ in range(4):  # now and then a window loses all of its device records
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(50):  # the tracer may lose a window's first device records
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            return max(dev, key=lambda e: e.time_range.elapsed_us()).name
+    raise RuntimeError("the profiler recorded no device activity in 4 windows")
 
 
 def library_record(case: dict, timed: bool = True) -> dict:
     """Assemble the case's matrix, hold sparse.mm(A, x) to the plain version
     (raises beyond 1e-12 of its largest entry), then time the kernel and the
-    library call on x (f64)."""
+    library call on x (f64). A case with an "f32" variant is also run in
+    f32: the same matrix cast, x cast, held to the f32 plain version (raises
+    beyond 1e-5 of its largest entry), both timed the same way ("f32")."""
     x = case["x"].contiguous()
     if "matrix" in case:
         A = case["matrix"]()
@@ -315,15 +353,34 @@ def library_record(case: dict, timed: bool = True) -> dict:
     rec = {"shape": case["shape"], "nnz": A.values().numel(), "rows": A.shape[0],
            "max_abs_err": err, "scale": scale}
     if timed:
-        lib = lambda: torch.sparse.mm(A, xcol)  # noqa: E731
-        kern = lambda: case["kernel"](x)  # noqa: E731
-        dl, dk = (device_time(f, longest_kernel(f), cold=True) for f in (lib, kern))
-        rec.update(library_ms=median_event_ms(lib), library_device_us=dl["all_device_us"],
-                   library_device_us_cold=dl["all_device_us_cold"],
-                   library_activities=dl["activities"], kernel_ms=median_event_ms(kern),
-                   kernel_device_us=dk["all_device_us"],
-                   kernel_device_us_cold=dk["all_device_us_cold"])
+        rec.update(_timed(lambda: torch.sparse.mm(A, xcol), lambda: case["kernel"](x)))
+    if "f32" in case:
+        kernel32, plain32 = case["f32"]()
+        A32 = torch.sparse_csr_tensor(A.crow_indices(), A.col_indices(), A.values().float(),
+                                      A.shape)
+        x32 = x.float()
+        ref32 = torch.cat([o.reshape(-1) for o in plain32(x32)])
+        got32 = torch.sparse.mm(A32, x32.reshape(-1, 1)).reshape(-1)
+        err32, scale32 = (got32 - ref32).abs().max().item(), ref32.abs().max().item()
+        if not err32 <= 1e-5 * scale32:
+            raise RuntimeError(f"f32 library matrix at {case['shape']}: {err32:.3e} vs "
+                               f"{scale32:.3e}")
+        rec["f32"] = {"max_abs_err": err32, "scale": scale32}
+        if timed:
+            rec["f32"].update(_timed(lambda: torch.sparse.mm(A32, x32.reshape(-1, 1)),
+                                     lambda: kernel32(x32)))
     return rec
+
+
+def _timed(lib, kern) -> dict:
+    """Event ms and device us (repeated, flushed) of the library call and the
+    kernel."""
+    dl, dk = (device_time(f, longest_kernel(f), cold=True) for f in (lib, kern))
+    return {"library_ms": median_event_ms(lib), "library_device_us": dl["all_device_us"],
+            "library_device_us_cold": dl["all_device_us_cold"],
+            "library_activities": dl["activities"], "kernel_ms": median_event_ms(kern),
+            "kernel_device_us": dk["all_device_us"],
+            "kernel_device_us_cold": dk["all_device_us_cold"]}
 
 
 def line(name: str, rec: dict) -> str:
@@ -331,14 +388,17 @@ def line(name: str, rec: dict) -> str:
          f"({rec['rows']:,} rows, {rec['nnz']:,} nonzeros), max |err| {rec['max_abs_err']:.3e} "
          f"against the plain "
          f"version (largest entry {rec['scale']:.3e})")
-    if "library_ms" in rec:
-        s += (f"; library event {rec['library_ms']:.4f} ms, device {rec['library_device_us']:.2f} "
-              f"us repeated, {rec['library_device_us_cold']:.2f} us flushed "
-              f"({rec['library_activities']:.0f} activities); kernel event {rec['kernel_ms']:.4f} "
-              f"ms, device {rec['kernel_device_us']:.2f} / {rec['kernel_device_us_cold']:.2f} us: "
-              f"flushed, the library call takes "
-              f"{rec['library_device_us_cold'] / rec['kernel_device_us_cold']:.2f}x the kernel's "
-              f"time")
+    for label, r in (("f64", rec), ("f32", rec.get("f32", {}))):
+        if "library_ms" in r:
+            s += (f"; {label}: library event {r['library_ms']:.4f} ms, device "
+                  f"{r['library_device_us']:.2f} us repeated, {r['library_device_us_cold']:.2f} "
+                  f"us flushed ({r['library_activities']:.0f} activities); kernel event "
+                  f"{r['kernel_ms']:.4f} ms, device {r['kernel_device_us']:.2f} / "
+                  f"{r['kernel_device_us_cold']:.2f} us: flushed, the library call takes "
+                  f"{r['library_device_us_cold'] / r['kernel_device_us_cold']:.2f}x the kernel's "
+                  f"time")
+    if "f32" in rec:
+        s += f" (f32 matrix max |err| {rec['f32']['max_abs_err']:.3e})"
     return s
 
 
