@@ -184,7 +184,27 @@ trained checkpoint exists). Along the way:
      too, held to the f32 plain version to 1e-5 and timed beside the f32
      kernel (`library["f32"]`); H and J, nonlinear in u, say so in
      `library_note`;
- 12. prints the wall time of every phase, the peak device memory of the
+ 12. the multi-device path (tpufem_torch.parallel, every rank a process of
+     torch.distributed spawned by run_ranks; the card's one H100 takes NCCL
+     at world 1 and gloo with 2 and 4 ranks sharing it), all f64, each
+     step's kernel launches counted from 0 on every rank: (a)
+     WingStencilT(DOF100K, dtype=float64) on wing 0 of phase 3's batch, tol
+     1e-8 (TRUE rel on the CPU <= 1e-6); (b) the sharded tet4 solve of the
+     same wing at NCCL 1, gloo 2 and gloo 4: the exchange layer's values,
+     u within 1e-8 of (a), iterations within 2, TRUE rel within 10 % of
+     (a)'s, the same u on every rank, make_plan's levels and cells, ms per
+     CG iteration and the exchange share; (c) tet10 at 32x40x4, gloo 2,
+     against Tet10StencilT(float64): u within 1e-8, iterations within 2; (e)
+     3 data-parallel steps of the full-width GraphSAGE on 4 of phase 5's
+     graphs at NCCL 1 and gloo 2, the first against the single-process step
+     (loss 1e-6, params 1e-5), the loss falling; (d) the sharded_flagship CLI at
+     DOF1M_TET10, gloo 2 (converged, TRUE rel on the CPU <= 1e-5, its
+     iterations beside tpufem's 188, its u against phase 9's); (f) the
+     dryrun_multichip stages at gloo 2; then kernels B, L, M on rank slabs
+     and D, N, E on a halo-extended mesh against their plain versions in
+     f64 (times and bound): their kernels-line entries gain these shapes and
+     `phase12_launches`;
+ 13. prints the wall time of every phase, the peak device memory of the
      phase-3 solve, the training phase, the gather solve, the dynamics, the
      design, the tet10 phase and its gather part, the second batched engine,
      the kernels' JSON line, then {"ok": true, "device": {...}}.
@@ -194,7 +214,8 @@ result. Usage: python3 chip_smoke.py   (one card, no arguments)
 
 Its phases took 309-359 s (phase 6: 30-40 s with kernel E at every plan,
 phase 7: 35-47 s, phase 8: 80-98 s, phase 9: 91-100 s with the gather
-engine, phase 10: 16 s) on an NVIDIA H100 80GB HBM3 at 700 W.
+engine, phase 10: 16 s) on an NVIDIA H100 80GB HBM3 at 700 W; with phase 12
+(the multi-device path, 217.6 s) 590 s, 603 s of command time.
 """
 
 from __future__ import annotations
@@ -474,6 +495,14 @@ def main() -> int:
     t0 = time.perf_counter()
     run_library_yardsticks(dev, kernels)
     walls["11 library yardsticks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p12_launches, p12_shapes = run_multi_device(dev, state, smi)
+    walls["12 multi-device path"] = time.perf_counter() - t0
+    print(f"[multi] phase 12 wall {walls['12 multi-device path']:.3f} s", flush=True)
+    for k in kernels:
+        if k["name"] in P12_KERNELS:
+            k["phase12_launches"] = p12_launches.get(k["name"], 0)
+            k.setdefault("shapes", {}).update(p12_shapes.get(k["name"], {}))
     print(json.dumps({"phase_wall_s": walls}))
     print(json.dumps({"peak_device_memory_bytes": state["peak_bytes"]}))
     print(json.dumps({"kernels": kernels}))
@@ -871,6 +900,7 @@ def run_training_path(dev, seg):
               f"{summ['mae_mpa_masked_mean']:.3f} MPa after {EPOCHS} epochs")
 
         graphs = ds.graphs("train")[:4]
+        seg["dp_graphs"] = graphs  # phase 12e's data-parallel step
         seg["gradient_check"] = check_gradients(dev, graphs)
         batch = GraphSet(graphs, dev).batch(range(4))
         model = GraphSAGE(SAGEConfig(), generator=torch.Generator().manual_seed(0), device=dev)
@@ -2222,6 +2252,378 @@ def run_batched_engine(dev, state, smi):
         "f32": {k: rec32[k] for k in keys}, "ptxas": {k: list(v) for k, v in o_regs.items()},
         "shapes": {k: {f: r[f] for f in keys} for k, r in orec.items()},
     }
+
+
+# ---------------------------------------------------------------- phase 12
+
+P12_TIMEOUT = 600.0  # seconds a spawn of phase 12 (and each of its collectives) may take
+P12_TET10_RES = (32, 40, 4)  # 12c: the tet10 modal CLI's grid
+P12_WING_DRYRUN = (12, 5, 2)  # the halo solves of the dry run at 2 ranks (12 x (2n+1) x 2)
+TPUFEM_SHARDED_RECORD = REPO / "results" / "sharded_tet10_2p5mdof_cpu_mesh.json"
+# each wrapper's line in the kernels' JSON
+P12_KERNELS = ("strain_apply", "strain_apply10", "prolong_p", "restrict_p", "stiffness_apply",
+               "tet10_force", "csr_segment_sum")
+
+
+def check_exchange_values(outs, world):
+    """Phase 12's exchange check: every rank's comm.check_exchanges result
+    against the values its collectives must give (as tests/test_torch_parallel.py)."""
+    base = np.arange(24, dtype=np.float64).reshape(2, 3, 4)
+    slabs = [base + 100.0 * d for d in range(world)]
+    full = np.concatenate([s[..., :-1] for s in slabs[:-1]] + [slabs[-1]], axis=-1)
+    for d, o in enumerate(outs):
+        want = slabs[d].copy()
+        if d + 1 < world:
+            want[..., -1] += slabs[d + 1][..., 0]
+        if d > 0:
+            want[..., 0] += slabs[d - 1][..., -1]
+        require(np.array_equal(o["sync"], want) and np.array_equal(o["full"], full)
+                and np.array_equal(o["sum"], [world, sum(range(world))])
+                and np.array_equal(o["raw_sum"], [world * (world + 1) / 2] * 2),
+                f"12: rank {d} of {world}: the exchanges gave wrong values")
+
+
+def add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def slab_kernel_checks(dev, p4w, lam, mu):
+    """Kernels B, L, M at the slab shapes phase 12 launches them with (rank
+    1's slab at 2 ranks: its span end faces are not the root), and D, N, E
+    on a halo-extended local mesh (rank 0 of the dry run's halo solves at 2
+    ranks), each against its plain version on the same inputs in f64, the
+    dtype phase 12 runs (1e-12 of the largest entry; M 1e-14; the same bits
+    twice; one count a call),
+    with event, device and plain times and the bound (profile_tet10.check_and_time)."""
+    from tpufem_torch import profile_tet10 as pt
+    from tpufem_torch.fem import stencil as st
+    from tpufem_torch.fem import tet10 as tt10
+    from tpufem_torch.fem import tet10_stencil as ts
+    from tpufem_torch.fem.assembly import build_incidence, stiffness_apply, stiffness_apply_plain
+    from tpufem_torch.fem.elements import tet4_setup
+    from tpufem_torch.mesher import DOF100K, DOF1M_TET10, WingMeshResolution
+    from tpufem_torch.ops.csr_segment_sum import csr_plan, csr_segment_sum, csr_segment_sum_plain
+    from tpufem_torch.parallel.halo_pcg import build_halo_partition, extended_nodes
+    from tpufem_torch.parallel.shard_stencil import slab_res, slab_yfrac
+
+    recs = {}
+    tols = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+    def rand(shape, dtype, seed, scale=1e-3):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float64).to(dtype) * scale
+
+    # B on rank 1's DOF100K slab at 2 ranks (3,1,65,7,41)
+    c = DOF100K.n_span // 2
+    rs = slab_res(DOF100K, c)
+    p4t = torch.tensor([p4w], dtype=torch.float64, device=dev)
+    X = st.nodes_grid(DOF100K, p4t, torch.float64, yfrac=slab_yfrac(1, c, DOF100K.n_span))
+    for dt in (torch.float64,):  # the dtype phase 12 launches it in
+        geo = tuple(t.to(dt) for t in st.cell_geometry(rs, X))
+        u = rand(X.shape, dt, 3)
+        free = torch.ones((1, 1, 1, 1, c + 1), dtype=dt, device=dev)
+        label = f"phase 12 DOF100K slab 64x{c}x6 of 2 ranks"
+        recs.setdefault("strain_apply", {})[f"{label} {pt.DTYPE_NAMES[dt]}"] = {
+            **pt.check_and_time("strain_apply", label,
+                                lambda: st.strain_apply(rs, geo, u, free, lam, mu),
+                                lambda: st.strain_apply_plain(rs, geo, u, free, lam, mu),
+                                tols[dt], pt.nbytes(geo[0], geo[1], u, free) + pt.nbytes(u), 0,
+                                dt), "grid": list(u.shape)}
+    # L and M on rank 1's flagship slab at 2 ranks (3,1,193,17,129)
+    c = DOF1M_TET10.n_span // 2
+    rs10 = slab_res(DOF1M_TET10, c)
+    p4f = torch.tensor([pt.FLAGSHIP_P4], dtype=torch.float64, device=dev)
+    X2 = ts.nodes_grid2(DOF1M_TET10, p4f, torch.float64,
+                        yfrac=slab_yfrac(1, c, DOF1M_TET10.n_span))
+    geo64 = ts.cell_geometry2(rs10, X2)
+    n_tets = 6 * rs10.n_chord * rs10.n_thick * rs10.n_span
+    label = f"phase 12 DOF1M_TET10 slab 96x{c}x8 of 2 ranks"
+    for dt in (torch.float64,):  # the dtype phase 12 launches them in
+        d = pt.DTYPE_NAMES[dt]
+        geo = tuple(t.to(dt) for t in geo64)
+        u2 = rand(X2.shape, dt, 4)
+        free2 = torch.ones((1, 1, 1, 1, 2 * c + 1), dtype=dt, device=dev)
+        dup2 = ts.dup_mask2(DOF1M_TET10, dt, dev)[..., : 2 * c + 1].contiguous()
+        recs.setdefault("strain_apply10", {})[f"{label} {d}"] = {
+            **pt.check_and_time("strain_apply10", label,
+                                lambda: ts.strain_apply10(rs10, geo, u2, free2, lam, mu),
+                                lambda: ts.strain_apply10_plain(rs10, geo, u2, free2, lam, mu),
+                                tols[dt], pt.nbytes(u2, geo[0][:, 1:], geo[1], free2)
+                                + pt.nbytes(u2), pt.l_flops_per_tet() * n_tets, dt),
+            "grid": list(u2.shape)}
+        x4 = rand((3, 1, rs10.n_chord + 1, rs10.n_thick + 1, c + 1), dt, 5)
+        free4 = torch.ones((1, 1, 1, 1, c + 1), dtype=dt, device=dev)
+        recs.setdefault("prolong_p", {})[f"{label} {d}"] = {
+            **pt.check_and_time("prolong_p", label,
+                                lambda: ts.prolong_p(rs10, x4, dup2, free2),
+                                lambda: ts.prolong_p_plain(rs10, x4, dup2, free2), pt.M_TOL[dt],
+                                pt.nbytes(x4, dup2, free2) + pt.nbytes(u2), 0, dt),
+            "grid": list(x4.shape)}
+        recs.setdefault("restrict_p", {})[f"{label} {d}"] = {
+            **pt.check_and_time("restrict_p", label,
+                                lambda: ts.restrict_p(rs10, u2, free4),
+                                lambda: ts.restrict_p_plain(rs10, u2, free4), pt.M_TOL[dt],
+                                pt.nbytes(u2, free4) + pt.nbytes(x4), 0, dt),
+            "grid": list(u2.shape)}
+    del geo64, X2
+    # D, N and E on rank 0's extended mesh of the dry run's halo solves (2 ranks)
+    res = WingMeshResolution(*P12_WING_DRYRUN)
+    for element in ("tet4", "tet10"):
+        part = build_halo_partition(res, 2, 1.2, 0.35, 10.0, 0.10, dtype=np.float64,
+                                    element=element)
+        n_el = int(part.elem_mask[0].sum())
+        elems_h = part.elems[0, :n_el]
+        nodes = torch.as_tensor(extended_nodes(part, 0), device=dev)
+        n_ext = nodes.shape[0]
+        elems = torch.as_tensor(elems_h, device=dev).contiguous()
+        x = rand((n_ext, 3), torch.float64, 6)
+        label = f"phase 12 halo {element} {res.n_chord}x{res.n_span}x{res.n_thick} rank 0 of 2"
+        if element == "tet4":
+            grads, vols = tet4_setup(nodes, elems.long())
+            plan = build_incidence(elems_h, n_ext, dev)
+            recs.setdefault("stiffness_apply", {})[f"{label} f64"] = {
+                **pt.check_and_time(
+                    "stiffness_apply", label,
+                    lambda: stiffness_apply(grads, vols, elems, x, lam, mu, plan),
+                    lambda: stiffness_apply_plain(grads, vols, elems, x, lam, mu, plan), 1e-12,
+                    pt.nbytes(grads, vols, elems, x) + pt.nbytes(x), 0, torch.float64),
+                "T": n_el, "N": n_ext}
+        else:
+            Jinv, vols = tt10.tet10_setup(nodes, elems)
+            mesh = tt10.Tet10Mesh(mesh4=None, tet10=elems_h.astype(np.int64),
+                                  edge_endpoints=np.zeros((0, 2)), surf_t6=np.zeros((0, 6)),
+                                  num_nodes=n_ext)
+            plan = tt10.force_plan(mesh, dev)
+            recs.setdefault("tet10_force", {})[f"{label} f64"] = {
+                **pt.check_and_time(
+                    "tet10_force", label,
+                    lambda: tt10.tet10_force(Jinv, vols, elems, x, lam, mu, n_ext, plan=plan),
+                    lambda: tt10.tet10_force_plain(Jinv, vols, elems, x, lam, mu, plan), 1e-12,
+                    pt.nbytes(Jinv, vols, elems, x) + pt.nbytes(x), 0, torch.float64,
+                    per_call=2), "T": n_el, "N": n_ext}
+            gplan = csr_plan(part.node_group[0].astype(np.int64), part.n_groups, dev)
+            vals = rand((part.n_max, 6), torch.float64, 7)
+            label = f"phase 12 halo {element} RBM group sum C=6 rank 0 of 2"
+            recs.setdefault("csr_segment_sum", {})[f"{label} f64"] = {
+                **pt.check_and_time("csr_segment_sum", label,
+                                    lambda: csr_segment_sum(vals, gplan),
+                                    lambda: csr_segment_sum_plain(vals, gplan), 1e-12,
+                                    pt.nbytes(vals) + 6 * 8 * part.n_groups, 0, torch.float64),
+                "rows": part.n_max, "segments": part.n_groups}
+    for name, by_shape in recs.items():
+        for key, r in by_shape.items():
+            print(f"[kernel {name}] {key}: max|err| {r['max_abs_err']:.3e} (rel "
+                  f"{r['rel_err']:.2e}), bitwise repeatable; event {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, device {r['device_us']:.2f} us "
+                  f"({r['device_us_cold']:.2f} flushed), bound {r['bound_us']:.2f} us "
+                  f"({r['bound_by']})", flush=True)
+    return recs
+
+
+def run_multi_device(dev, state, smi):
+    """Phase 12, the multi-device path (tpufem_torch.parallel), through
+    run_ranks: 12a WingStencilT(DOF100K, dtype=float64) on wing 0 of the
+    seeded batch, tol 1e-8 (the f64 MG-PCG the sharded solve is held to),
+    TRUE rel on the CPU <= 1e-6 (its recurrence reaches 1e-8; its TRUE
+    residual floors near 3.5e-7 at DOF100K whatever the tol: 3.49e-7 at tol
+    1e-8 and 1e-10 on the CPU); 12b the sharded tet4 solve of the same wing
+    at NCCL world 1 and gloo worlds 2 and 4 on the one card (u within 1e-8
+    of 12a, iterations within 2, TRUE rel within 10 % of 12a's); 12c
+    tet10 at 32x40x4, gloo world 2, against Tet10StencilT(float64) (u within
+    1e-8, iterations within 2); 12d sharded_flagship at DOF1M_TET10, gloo
+    world 2, f64, tol 1e-6 (converged on its recurrence, TRUE rel on the CPU
+    <= 1e-5, the flagship's certified bar: the plain f64 CG's TRUE residual
+    sits above its recurrence, 2.7e-6 at a recurred 9.0e-7); 12e 3 DP steps
+    with the full-width GraphSAGE on 4 of phase 5's graphs at NCCL world 1
+    and gloo world 2 (the first step's loss within 1e-6 and its params within
+    1e-5 of the single-process step, the loss falling over the 3); 12f the
+    dry run at gloo world 2. Every rank's kernel launches are counted from 0 in its
+    step. Then kernels B, L, M, D, N and E at the slab and extended-mesh
+    shapes against their plain versions. Returns ({wrapper: launches},
+    {wrapper: {shape: record}})."""
+    from tpufem_torch.fem.material import Material, lame_params
+    from tpufem_torch.fem.stencil_mg import WingStencilT
+    from tpufem_torch.fem.tet10 import tet10_upper_t6
+    from tpufem_torch.fem.tet10_stencil import Tet10StencilT, grid_meta2
+    from tpufem_torch.mesher import DOF100K, DOF1M_TET10, WingMeshResolution, structured_wing_mesh
+    from tpufem_torch.models.sage import SAGEConfig
+    from tpufem_torch.parallel.comm import check_exchanges
+    from tpufem_torch.parallel.data_parallel import dp_train
+    from tpufem_torch.parallel.launch import counted, kernel_counters, run_all, run_ranks
+    from tpufem_torch.parallel.meshes import DeviceGroup
+    from tpufem_torch.parallel.shard_stencil import sharded_solve
+    from tpufem_torch.scripts import sharded_flagship
+    from tpufem_torch.scripts.dryrun_multichip import dryrun_multichip, params_gap, stacked_graphs
+    from tpufem_torch import profile_tet10 as pt
+    from tpufem_torch.sets import build_boundary_sets
+
+    lam, mu = lame_params(Material())
+    walls, total = {}, {}
+    p4w = tuple(float(v) for v in state["p4"][0])
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    t_phase = time.perf_counter()
+
+    # ---- 12a. the single-device f64 reference
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    ws = WingStencilT(DOF100K, dtype=torch.float64)
+    ref = ws.solve(np.array([p4w]), pressure=PRESSURE, tol=1e-8, maxiter=2000)
+    torch.cuda.synchronize()
+    walls["12a"] = time.perf_counter() - t0
+    add_launches(total, {k: f.launches for k, f in counters.items()})
+    upper, free = ws.bt.upper.cpu().numpy(), ws.bt.free64.cpu().numpy()
+    u_a = ref.u[:, :, 0].cpu().numpy()
+    rel_a = float(true_residual_cpu(DOF100K, np.array([p4w]), ref.u.cpu(), upper, free, lam,
+                                    mu)[0])
+    print(f"[multi] 12a WingStencilT({DOF100K.key}, float64) wing 0 tol 1e-8: {ref.iters} "
+          f"iterations, converged {bool(ref.converged.all())}, recurred rel "
+          f"{float(ref.rel_residual[0]):.3e}, TRUE rel on the CPU {rel_a:.3e} (bar {TOL}: the "
+          f"f64 CG's TRUE residual floors near 3.5e-7 here whatever its tol); "
+          f"{walls['12a']:.3f} s, timing {ws.last_timing} [{smi}]", flush=True)
+    require(bool(ref.converged.all()) and rel_a <= TOL, f"12a: rel {rel_a:.3e}")
+    scale_a = np.abs(u_a).max()
+    del ws
+
+    # ---- 12b, 12c, 12e in one spawn per (backend, world)
+    tet4 = (counted, (sharded_solve, DOF100K, "tet4", torch.float64, p4w, PRESSURE, 1e-8, 2000))
+    res_c = WingMeshResolution(*P12_TET10_RES, 0.006, "le")
+    tet10 = (counted, (sharded_solve, res_c, "tet10", torch.float64, p4w, PRESSURE, 1e-8, 600))
+    graphs = stacked_graphs(state["segment"]["dp_graphs"])
+    cfg = SAGEConfig()
+    dp3 = (counted, (dp_train, cfg, graphs, 3, 0))
+    plans = {("nccl", 1): [(check_exchanges, ()), tet4, dp3],
+             ("gloo", 2): [(check_exchanges, ()), tet4, tet10, dp3],
+             ("gloo", 4): [(check_exchanges, ()), tet4]}
+    runs = {}
+    for (backend, world), calls in plans.items():
+        t0 = time.perf_counter()
+        runs[(backend, world)] = run_ranks(run_all, world, backend, "cuda", args=(calls,),
+                                           timeout_s=P12_TIMEOUT)
+        walls[f"12b {backend} {world}"] = time.perf_counter() - t0
+        outs = runs[(backend, world)]
+        check_exchange_values([o[0] for o in outs], world)
+        for o in outs:
+            for r in o[1:]:
+                add_launches(total, r["launches"])
+        ranks = [o[1]["out"] for o in outs]
+        r0 = ranks[0]
+        tm = [r["timing"] for r in ranks]
+        rel_b = float(true_residual_cpu(DOF100K, np.array([p4w]),
+                                        torch.as_tensor(r0["u"][:, :, None]), upper, free,
+                                        lam, mu)[0])
+        du = np.abs(r0["u"] - u_a).max() / scale_a
+        print(f"[multi] 12b sharded tet4 {DOF100K.key} {backend} world {world} on one card: "
+              f"n_shard {r0['n_shard']}, cells {r0['cells']}; {r0['iters']} iterations (12a "
+              f"{ref.iters}), recurred rel {r0['rel']:.3e}, TRUE rel on the CPU {rel_b:.3e} (bar: "
+              f"within 10% of 12a's {rel_a:.3e}), max|u - u_12a| / max|u_12a| {du:.3e} (bar "
+              f"1e-8); per rank: setup "
+              f"{[round(t['setup_s'], 3) for t in tm]} s, solve "
+              f"{[round(t['solve_s'], 3) for t in tm]} s, "
+              f"{[round(1e3 * t['solve_s'] / max(r0['iters'], 1), 3) for t in tm]} ms per CG "
+              f"iteration, exchange share "
+              f"{[round(t['exchange_solve_s'] / t['solve_s'], 4) for t in tm]} "
+              f"({tm[0]['exchange_calls']} exchange calls); launches rank 0 "
+              f"{outs[0][1]['launches']}; spawn wall {walls[f'12b {backend} {world}']:.3f} s "
+              f"[{smi}]", flush=True)
+        require(all(r["iters"] == r0["iters"] and np.array_equal(r["u"], r0["u"]) for r in ranks),
+                f"12b {backend} {world}: the ranks disagree")
+        require(abs(r0["iters"] - ref.iters) <= 2 and du <= 1e-8 and rel_b <= 1.1 * rel_a,
+                f"12b {backend} {world}: iters {r0['iters']}, du {du:.3e}, rel {rel_b:.3e}")
+        require(outs[0][1]["launches"]["strain_apply"] > 0, "12b: kernel B was not launched")
+    # 12c
+    wm = structured_wing_mesh(*p4w, res_c)
+    bs = build_boundary_sets(wm)
+    t10ref = Tet10StencilT(res_c, dtype=torch.float64).solve(
+        np.array([p4w]), bs.surf_upper_faces, pressure=PRESSURE, tol=1e-8, maxiter=600)
+    c_out = runs[("gloo", 2)][0][2]
+    rc = c_out["out"]
+    u10 = t10ref.u[:, :, 0]
+    du = np.abs(rc["u"] - u10).max() / np.abs(u10).max()
+    print(f"[multi] 12c sharded tet10 {res_c.key} gloo world 2: {rc['iters']} iterations "
+          f"(Tet10StencilT float64: {t10ref.iters}), rel {rc['rel']:.3e}, max|u - u_ref| / "
+          f"max|u_ref| {du:.3e} (bar 1e-8); solve {rc['timing']['solve_s']:.3f} s, exchange "
+          f"share {rc['timing']['exchange_solve_s'] / rc['timing']['solve_s']:.4f}; launches "
+          f"{c_out['launches']}", flush=True)
+    require(rc["rel"] <= 1e-8 and abs(rc["iters"] - t10ref.iters) <= 2 and du <= 1e-8,
+            f"12c: iters {rc['iters']} vs {t10ref.iters}, du {du:.3e}")
+    require(c_out["launches"]["strain_apply10"] > 0 and c_out["launches"]["restrict_p"] > 0
+            and c_out["launches"]["prolong_p"] > 0, "12c: kernels L and M were not launched")
+
+    # ---- 12e. the DP step against the single-process step (this process, world 1)
+    t0 = time.perf_counter()
+    single = dp_train(DeviceGroup(0, 1, "nccl", dev), cfg, graphs, steps=1, seed=0)
+    for key in (("nccl", 1), ("gloo", 2)):
+        three = runs[key][0][-1]
+        losses = three["out"]["losses"]
+        gap = params_gap(three["out"]["params_step1"], single["params"])
+        dl = abs(losses[0] - single["losses"][0]) / abs(single["losses"][0])
+        print(f"[multi] 12e DP steps, full-width GraphSAGE on 4 DOF100K graphs, {key[0]} world "
+              f"{key[1]}: step 1 loss {losses[0]:.7f} vs single-process "
+              f"{single['losses'][0]:.7f} (rel {dl:.2e}, bar 1e-6), params after it within "
+              f"{gap:.2e} (bar 1e-5); 3 steps {losses}, params after them within "
+              f"{params_gap(three['out']['params'], single['params']):.2e} of the single "
+              f"step's (information); launches on rank 0 {three['launches']}", flush=True)
+        require(dl <= 1e-6 and gap <= 1e-5, f"12e {key}: loss rel {dl:.2e}, params {gap:.2e}")
+        require(losses[-1] < losses[0], f"12e {key}: the loss did not fall: {losses}")
+        require(three["launches"]["gather_row_sum"] > 0, "12e: kernel A entry (b) not launched")
+    walls["12e single-process step"] = time.perf_counter() - t0
+
+    # ---- 12d. the sharded flagship CLI, gloo world 2 on the card
+    t0 = time.perf_counter()
+    rec, r0 = sharded_flagship.run(["--ranks", "2", "--backend", "gloo", "--device", "cuda",
+                                    "--out", str(REPO / "build" / "sharded_tet10_2p5mdof.json")])
+    walls["12d flagship"] = time.perf_counter() - t0
+    d = rec["detail"]
+    t10 = grid_meta2(DOF1M_TET10)["t10"]
+    fw = structured_wing_mesh(*pt.FLAGSHIP_P4, DOF1M_TET10)
+    ut6 = tet10_upper_t6(t10, build_boundary_sets(fw).surf_upper_faces)
+    rel_d = tet10_true_residual_cpu(DOF1M_TET10, pt.FLAGSHIP_P4, r0["u"][:, :, None], ut6, lam,
+                                    mu)
+    u9 = np.asarray(state["tet10"]["u"])
+    du9 = np.abs(r0["u"] - u9).max() / np.abs(u9).max()
+    tp_iters = json.loads(TPUFEM_SHARDED_RECORD.read_text())["detail"]["iters"]
+    print(f"[multi] 12d sharded_flagship {DOF1M_TET10.key} ({d['dof']} DOF) gloo world 2 on "
+          f"{d['card']}: {d['iters']} iterations beside tpufem's {tp_iters} (8 CPU devices, "
+          f"results/sharded_tet10_2p5mdof_cpu_mesh.json), converged {d['converged']}, recurred "
+          f"rel {d['rel_residual']:.3e}, TRUE rel on the CPU {rel_d:.3e} (bar 1e-5, the "
+          f"flagship's certified bar; a plain f64 CG's TRUE residual drifts above its "
+          f"recurrence); "
+          f"max|u - u_9| / max|u_9| {du9:.3e} (phase 9's stencil-engine u, its TRUE rel <= "
+          f"1e-5); setup {d['setup_s']} s, solve {rec['value']} s, {d['ms_per_iter']} ms per "
+          f"iteration, exchange share {d['exchange_share']}, n_shard {d['n_shard']} cells "
+          f"{d['cells']}; peak device memory per rank {d['peak_bytes_per_rank']} B; CLI wall "
+          f"{walls['12d flagship']:.3f} s; launches rank 0 {r0['launches']}", flush=True)
+    if walls["12d flagship"] > 120.0:
+        print(f"[multi] 12d took {walls['12d flagship']:.1f} s (> 120 s): {d['iters']} "
+              f"iterations at {d['ms_per_iter']} ms, {d['exchange_share']:.1%} of the solve "
+              f"inside the exchanges (gloo stages every layer through the host), setup "
+              f"{d['setup_s']} s", flush=True)
+    require(d["converged"] and rel_d <= 1e-5, f"12d: converged {d['converged']}, rel {rel_d:.3e}")
+    add_launches(total, r0["launches"])
+
+    # ---- 12f. the dry run, gloo world 2 on the card
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, "gloo", "cuda", P12_TIMEOUT)
+    walls["12f dryrun"] = time.perf_counter() - t0
+    add_launches(total, dry["launches"])
+    print(f"[multi] 12f dryrun_multichip(2) gloo on the card: all five stages passed in "
+          f"{walls['12f dryrun']:.3f} s; launches rank 0 {dry['launches']}", flush=True)
+    require(dry["launches"]["stiffness_apply"] > 0 and dry["launches"]["tet10_force"] > 0,
+            "12f: kernels D and N were not launched by the halo solves")
+
+    walls["12 total to here"] = time.perf_counter() - t_phase
+    print(f"[multi] launches of phase 12 (every rank of every step): {total}; walls {walls}",
+          flush=True)
+    for name in P12_KERNELS:
+        require(total.get(name, 0) > 0, f"phase 12: {name} was not launched")
+    t0 = time.perf_counter()
+    shapes = slab_kernel_checks(dev, p4w, lam, mu)
+    print(f"[multi] slab and extended-mesh kernel checks {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    return total, shapes
 
 
 if __name__ == "__main__":

@@ -1170,3 +1170,88 @@ def test_tet10_gather_solves_on_cuda_match_cpu(cuda):
                               nj2=2 * res.n_span + 1, device=d) for d in (cuda, "cpu")]
     assert cases[0][4] and cases[1][4]
     assert np.abs(cases[0][0] - cases[1][0]).max() <= 1e-7 * np.abs(cases[1][0]).max()
+
+
+# ------------------------------------------------- the multi-device layer's shapes
+
+
+def _slab(res, c, rank, p4, dtype, dev, tet10=False):
+    """(slab res, geo, u, free) of rank's slab of c span cells (its geometry
+    from its span fractions: parallel.shard_stencil's slabs), u seeded."""
+    from tpufem_torch.fem import tet10_stencil as tts
+    from tpufem_torch.parallel.shard_stencil import slab_res, slab_yfrac
+
+    rs = slab_res(res, c)
+    p4t = torch.as_tensor(np.asarray([p4]), dtype=torch.float64, device=dev)
+    yf = slab_yfrac(rank, c, res.n_span)
+    if tet10:
+        X = tts.nodes_grid2(res, p4t, torch.float64, yfrac=yf)
+        geo = tts.cell_geometry2(rs, X)
+    else:
+        X = tst.nodes_grid(res, p4t, torch.float64, yfrac=yf)
+        geo = tst.cell_geometry(rs, X)
+    gen = torch.Generator(device=dev).manual_seed(rank)
+    u = torch.randn(X.shape, generator=gen, device=dev, dtype=torch.float64) * 1e-3
+    free = torch.ones((1, 1, 1, 1, X.shape[-1]), dtype=torch.float64, device=dev)
+    if rank == 0:
+        free[..., 0] = 0.0
+    return rs, tuple(t.to(dtype) for t in geo), u.to(dtype), free.to(dtype)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernels_B_L_M_at_slab_shapes(cuda, rank, dtype):
+    """Kernel B on a DOF100K slab and L, M on a 32x40x4 doubled slab of 2
+    ranks (rank 0 holds the root, rank 1 not) against their plain versions."""
+    from tpufem_torch.fem import tet10_stencil as tts
+
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    rs, geo, u, free = _slab(DOF100K, 40, rank, (1.2, 0.35, 10.0, 0.10), dtype, cuda)
+    y, ref = tst.strain_apply(rs, geo, u, free, LAM, MU), tst.strain_apply_plain(
+        rs, geo, u, free, LAM, MU)
+    assert (y - ref).abs().max() <= tol * ref.abs().max()
+    res10 = WingMeshResolution(32, 40, 4, 0.006, "le")
+    rs, geo, u2, free2 = _slab(res10, 20, rank, (1.6, 0.4, 20.0, 0.10), dtype, cuda, tet10=True)
+    y, ref = (tts.strain_apply10(rs, geo, u2, free2, LAM, MU),
+              tts.strain_apply10_plain(rs, geo, u2, free2, LAM, MU))
+    assert (y - ref).abs().max() <= tol * ref.abs().max()
+    dup2 = tts.dup_mask2(res10, dtype, cuda)[..., :41].contiguous()
+    x4 = u2[:, :, ::2, ::2, ::2].contiguous()
+    free4 = free2[..., ::2].contiguous()
+    mtol = 1e-14 if dtype == torch.float64 else 1e-6  # profile_tet10.M_TOL
+    for got, want in ((tts.prolong_p(rs, x4, dup2, free2),
+                       tts.prolong_p_plain(rs, x4, dup2, free2)),
+                      (tts.restrict_p(rs, u2, free4), tts.restrict_p_plain(rs, u2, free4))):
+        assert (got - want).abs().max() <= mtol * want.abs().max()
+
+
+@pytest.mark.parametrize("element", ["tet4", "tet10"])
+def test_kernels_D_N_on_a_halo_extended_mesh(cuda, element):
+    """Kernel D (tet4) and N (tet10) on rank 0's extended local mesh of the
+    halo PCG's partition (owned nodes, then the next rank's ghosts), without
+    a mask, against their plain versions in f64."""
+    from tpufem_torch.fem import tet10 as tt10
+    from tpufem_torch.parallel.halo_pcg import build_halo_partition, extended_nodes
+
+    part = build_halo_partition(WingMeshResolution(12, 18, 2), 4, 1.2, 0.35, 10.0, 0.10,
+                                dtype=np.float64, element=element)
+    n_el = int(part.elem_mask[0].sum())
+    elems_h = part.elems[0, :n_el]
+    nodes = torch.as_tensor(extended_nodes(part, 0), device=cuda)
+    elems = torch.as_tensor(elems_h, device=cuda).contiguous()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(nodes.shape, generator=gen, device=cuda, dtype=torch.float64)
+    if element == "tet4":
+        grads, vols = tet4_setup(nodes, elems.long())
+        plan = tas.build_incidence(elems_h, nodes.shape[0], cuda)
+        y = tas.stiffness_apply(grads, vols, elems, x, LAM, MU, plan)
+        ref = tas.stiffness_apply_plain(grads, vols, elems, x, LAM, MU, plan)
+    else:
+        Jinv, vols = tt10.tet10_setup(nodes, elems)
+        mesh = tt10.Tet10Mesh(mesh4=None, tet10=elems_h.astype(np.int64),
+                              edge_endpoints=np.zeros((0, 2)), surf_t6=np.zeros((0, 6)),
+                              num_nodes=nodes.shape[0])
+        plan = tt10.force_plan(mesh, cuda)
+        y = tt10.tet10_force(Jinv, vols, elems, x, LAM, MU, nodes.shape[0], plan=plan)
+        ref = tt10.tet10_force_plain(Jinv, vols, elems, x, LAM, MU, plan)
+    assert (y - ref).abs().max() <= 1e-12 * ref.abs().max()

@@ -6,8 +6,12 @@ scripts/generate_fem_dataset.py:195-204) run, on the CPU at 8x12x2, B=2.
 - WingStencilT(res, dtype=...) with tpufem's float32 spelled every way, and
   .solve(..., outer_f64=True, chunk_iters=250, inner_tol=...), give the
   bits of the call without chunk_iters and inner_tol;
-- the branches that are not ported (a V-cycle dtype other than float32,
-  warm_f32, dd_main) raise NotImplementedError;
+- the branches that are not ported (a V-cycle dtype other than float32 or
+  float64, warm_f32, dd_main) raise NotImplementedError;
+- WingStencilT(res, dtype=float64) gives tpufem's WingStencilT(dtype=
+  jnp.float64) at 16x16x2 (the solver tpufem's span-sharded tet4 is held
+  to), tol 1e-8, on both outer_f64 values: iterations within 2, u within
+  1e-8 of the largest displacement;
 - the f32-only CG (outer_f64=False, tpufem's default) and refine_steps=2
   give tpufem's same branch at tpufem's test grid 12x10x3 (two wings, tol
   1e-6): refine's f64 u within 1e-7 of the largest displacement (measured
@@ -64,8 +68,7 @@ def test_tpufem_keywords_give_the_same_bits(plain, spelling):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
 
 
-@pytest.mark.parametrize("call", ["dtype float64", "dtype bfloat16", "warm_f32=True",
-                                  "dd_main=True"])
+@pytest.mark.parametrize("call", ["dtype bfloat16", "warm_f32=True", "dd_main=True"])
 def test_unported_branches_raise(call):
     if call.startswith("dtype"):
         with pytest.raises(NotImplementedError, match="not ported"):
@@ -74,6 +77,35 @@ def test_unported_branches_raise(call):
     key, value = call.split("=")
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         WingStencilT(RES, device="cpu").solve(P4, **{key: eval(value)}, **KW)
+
+
+F64_RES = WingMeshResolution(16, 16, 2, te_floor_frac=0.006, spacing="le")
+F64_P4 = np.array([[1.2, 0.35, 10.0, 0.10]])
+
+
+@pytest.fixture(scope="module")
+def tpufem_f64():
+    """tpufem's f64 WingStencilT at 16x16x2 (one solver: its jit cache serves
+    both branches)."""
+    from tpufem.fem.stencil_mg import WingStencilT as JWingStencilT
+    from tpufem.mesher import WingMeshResolution as JRes
+
+    return JWingStencilT(JRes(16, 16, 2, te_floor_frac=0.006, spacing="le"),
+                         dtype=jnp.float64)
+
+
+@pytest.mark.parametrize("outer_f64", [False, True])
+@pytest.mark.parametrize("spelling", ["torch", "jnp"])
+def test_float64_matches_tpufem(tpufem_f64, outer_f64, spelling):
+    args = {"pressure": 5e3, "tol": 1e-8, "maxiter": 400, "outer_f64": outer_f64}
+    dtype = {"torch": torch.float64, "jnp": jnp.float64}[spelling]
+    out = WingStencilT(F64_RES, device="cpu", dtype=dtype).solve(F64_P4, **args)
+    ref = tpufem_f64.solve(F64_P4, chunk_iters=400, **args)
+    u, ur = out.u.numpy(), np.asarray(ref.u)
+    assert u.dtype == ur.dtype == np.float64
+    assert abs(out.iters - int(ref.iters)) <= 2, (out.iters, ref.iters)
+    assert bool(out.converged.all()) and bool(np.asarray(ref.converged).all())
+    assert np.abs(u - ur).max() <= 1e-8 * np.abs(ur).max()
 
 
 BRANCH_RES = WingMeshResolution(12, 10, 3, te_floor_frac=0.006, spacing="le")

@@ -64,15 +64,23 @@ def _grid_index(res: WingMeshResolution, device: torch.device):
     return tuple(torch.as_tensor(m[k], dtype=torch.long, device=device) for k in ("gi", "gk", "gj"))
 
 
-def nodes_grid(res: WingMeshResolution, p4: torch.Tensor, dtype: torch.dtype):
+def nodes_grid(res: WingMeshResolution, p4: torch.Tensor, dtype: torch.dtype, yfrac=None):
     """Full-grid node coordinates (3, B, NI, NK, NJ) from (B,4) params,
-    computed on p4's device in `dtype`."""
+    computed on p4's device in `dtype`.
+
+    `yfrac` overrides the span-fraction vector (default: the full 0..1 grid,
+    NJ = n_span + 1); a slice of it gives the coordinates of that span slab
+    alone, NJ = len(yfrac): the span-sharded solver (parallel.shard_stencil)
+    builds each rank's slab so."""
     dev = p4.device
-    NI, NJ, NK = res.n_chord + 1, res.n_span + 1, res.n_thick + 1
+    NI, NK = res.n_chord + 1, res.n_thick + 1
     s_np = stations(res.n_chord, res.spacing)
     s = torch.as_tensor(s_np, dtype=dtype, device=dev)  # (NI,)
     zbase = torch.as_tensor(naca00xx_half_thickness(s_np, 1.0), dtype=dtype, device=dev)
-    yfrac = torch.as_tensor(np.arange(NJ) / res.n_span, dtype=dtype, device=dev)
+    if yfrac is None:
+        yfrac = np.arange(res.n_span + 1) / res.n_span
+    yfrac = torch.as_tensor(yfrac, dtype=dtype, device=dev)
+    NJ = yfrac.shape[0]
     zfrac = torch.as_tensor(2.0 * np.arange(NK) / res.n_thick - 1.0, dtype=dtype, device=dev)
     span, chord, sweep, t = p4.to(dtype).unbind(1)  # (B,)
 

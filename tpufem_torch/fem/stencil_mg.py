@@ -18,7 +18,7 @@ import time
 import numpy as np
 import torch
 
-from tpufem_torch.device import resolve_device
+from tpufem_torch.device import float_dtype, resolve_device
 from tpufem_torch.fem.batched_t import BatchTSolveResult, WingBatchT
 from tpufem_torch.fem.material import Material, lame_params
 from tpufem_torch.fem.multigrid import _level_host, coarsest_dense_inverse_host
@@ -121,6 +121,57 @@ def _restrict_axis(xf, axis, wL, wR):
     return out
 
 
+# ------------------------------------------------------- thickness lines
+
+
+def line_matrices(r: WingMeshResolution, C, dirichlet: bool = True):
+    """(NI, NJ, B, D, D) thickness-line blocks, D = 3 (NK), from the
+    stencil's same-station offsets C (assemble_stencil(offsets=_LINE_OFFSETS)
+    on a grid of NJ span layers), with the weld collapse and, where
+    `dirichlet`, the identity block at j = 0 (the root; a span slab not at
+    the root has none)."""
+    NI, NK = r.n_chord + 1, r.n_thick + 1
+    C0 = C[(0, 0, 0)]
+    NJ, nb, dtype, dev = C0.shape[5], C0.shape[2], C0.dtype, C0.device
+    D = 3 * NK
+    Bm = torch.zeros((NI, NJ, NK, 3, NK, 3, nb), dtype=dtype, device=dev)
+    for dk in (-1, 0, 1):
+        Co = C.get((0, 0, dk))
+        if Co is None:
+            continue
+        Cp = Co.permute(3, 5, 4, 0, 1, 2)  # (3,3,B,NI,NK,NJ) -> (NI,NJ,NK,3,3,B)
+        for k in range(NK):
+            k2 = k + dk
+            if 0 <= k2 < NK:
+                Bm[:, :, k, :, k2, :] = Cp[:, :, k]
+    Bm = Bm.reshape(NI, NJ, D, D, nb)
+    # weld lines: collapse to a 3x3 block at slot 0, identity elsewhere
+    welds = [0] + ([NI - 1] if r.te_floor_frac == 0.0 else [])
+    eyeD = torch.eye(D, dtype=dtype, device=dev)
+    for iw in welds:
+        blk = Bm[iw].reshape(NJ, NK, 3, NK, 3, nb).sum(dim=(1, 3))  # (NJ,3,3,B)
+        row = eyeD[None, :, :, None].expand(NJ, D, D, nb).clone()
+        row[:, :3, :3, :] = blk
+        Bm[iw] = row
+    if dirichlet:  # the root (j=0): identity block
+        Bm[:, 0] = eyeD[None, :, :, None]
+    return Bm.permute(0, 1, 4, 2, 3)  # (NI,NJ,B,D,D)
+
+
+def line_apply(Binv, rg, mask):
+    """z = line-block solve; rg (3,B,NI,NK,NJ) active form, Binv
+    (NI,NJ,B,D,D), z times `mask` (the level's active mask). z comes back
+    contiguous: kernel B takes only contiguous operands, and the smoother and
+    the CG hand it what this returns."""
+    NI, NK, NJ = rg.shape[2], rg.shape[3], rg.shape[4]
+    nb = rg.shape[1]
+    rs = rg.permute(2, 4, 1, 3, 0).reshape(NI, NJ, nb, 3 * NK, 1)  # (NI,NJ,B,D,1)
+    zs = torch.matmul(Binv, rs)
+    z = zs.reshape(NI, NJ, nb, NK, 3).permute(4, 2, 0, 3, 1)
+    out = torch.empty(z.shape, dtype=z.dtype, device=z.device)
+    return torch.mul(z, mask, out=out)
+
+
 # ------------------------------------------------------------- the MG class
 
 
@@ -186,34 +237,8 @@ class StencilMG:
         )
 
     def _line_matrices(self, li, C):
-        """(NI, NJ, B, D, D) thickness-line blocks from the stencil's
-        same-station offsets, with weld collapse and Dirichlet identity."""
-        r = self.resolutions[li]
-        NI, NJ, NK = r.n_chord + 1, r.n_span + 1, r.n_thick + 1
-        D = 3 * NK
-        nb = C[(0, 0, 0)].shape[2]
-        Bm = torch.zeros((NI, NJ, NK, 3, NK, 3, nb), dtype=self.dtype, device=self.device)
-        for dk in (-1, 0, 1):
-            Co = C.get((0, 0, dk))
-            if Co is None:
-                continue
-            Cp = Co.permute(3, 5, 4, 0, 1, 2)  # (3,3,B,NI,NK,NJ) -> (NI,NJ,NK,3,3,B)
-            for k in range(NK):
-                k2 = k + dk
-                if 0 <= k2 < NK:
-                    Bm[:, :, k, :, k2, :] = Cp[:, :, k]
-        Bm = Bm.reshape(NI, NJ, D, D, nb)
-        # weld lines: collapse to a 3x3 block at slot 0, identity elsewhere
-        welds = [0] + ([NI - 1] if r.te_floor_frac == 0.0 else [])
-        eyeD = torch.eye(D, dtype=self.dtype, device=self.device)
-        for iw in welds:
-            blk = Bm[iw].reshape(NJ, NK, 3, NK, 3, nb).sum(dim=(1, 3))  # (NJ,3,3,B)
-            row = eyeD[None, :, :, None].expand(NJ, D, D, nb).clone()
-            row[:, :3, :3, :] = blk
-            Bm[iw] = row
-        # Dirichlet (j=0): identity block
-        Bm[:, 0] = eyeD[None, :, :, None]
-        return Bm.permute(0, 1, 4, 2, 3)  # (NI,NJ,B,D,D)
+        """(NI, NJ, B, D, D) thickness-line blocks of level li (line_matrices)."""
+        return line_matrices(self.resolutions[li], C)
 
     def _line_blocks(self, li, C):
         """(NI, NJ, B, D, D) inverted thickness-line blocks. The case axis sits
@@ -224,17 +249,8 @@ class StencilMG:
         return spd_block_inverse(Bm.reshape(-1, D, D)).reshape(NI, NJ, nb, D, D)
 
     def _line_apply(self, li, Binv, rg):
-        """z = line-block solve; rg (3,B,NI,NK,NJ) active form. z comes back
-        contiguous: kernel B takes only contiguous operands, and the smoother
-        and the CG hand it what this returns."""
-        r = self.resolutions[li]
-        NI, NJ, NK = r.n_chord + 1, r.n_span + 1, r.n_thick + 1
-        nb = rg.shape[1]
-        rs = rg.permute(2, 4, 1, 3, 0).reshape(NI, NJ, nb, 3 * NK, 1)  # (NI,NJ,B,D,1)
-        zs = torch.matmul(Binv, rs)
-        z = zs.reshape(NI, NJ, nb, NK, 3).permute(4, 2, 0, 3, 1)
-        out = torch.empty(z.shape, dtype=z.dtype, device=z.device)
-        return torch.mul(z, self.active_masks[li], out=out)
+        """z = line-block solve of level li (line_apply)."""
+        return line_apply(Binv, rg, self.active_masks[li])
 
     # ---- transfers (fine li -> coarse li+1 and back)
     def _prolong(self, li, xc):
@@ -440,39 +456,26 @@ def _correction_rounds(A, M, dot, resid, x, total, tol, maxiter, rounds, stop_ra
     return x, total, rel
 
 
-MG_DTYPE = torch.float32  # the V-cycle preconditioner's dtype inside the f64 CG
-
-
 def ops64(res: WingMeshResolution, geo64, free64, lam64: float, mu64: float,
           smg: StencilMG, mg_state, extra=None):
     """(A, M, dot) of an f64-operator CG over the trailing batch axis: the
     f64 operator (kernel B on CUDA), plus `extra(x)` where given (the
-    prestressed pencil's p * K_G x), the f32 V-cycle of `smg` at `mg_state`
-    as preconditioner, f64 dots per lane. WingStencilT.solve and the block
-    eigensolvers of fem.modal and fem.buckling all build their CG here."""
+    prestressed pencil's p * K_G x), the V-cycle of `smg` (f32, or f64 for a
+    WingStencilT in f64) at `mg_state` as preconditioner, f64 dots per lane.
+    WingStencilT.solve and the block eigensolvers of fem.modal and
+    fem.buckling all build their CG here."""
 
     def A(x):
         y = strain_apply(res, geo64, x, free64, lam64, mu64)
         return y if extra is None else y + extra(x)
 
     def M(r):
-        return smg.apply(mg_state, r.to(MG_DTYPE)).to(torch.float64)
+        return smg.apply(mg_state, r.to(smg.dtype)).to(torch.float64)
 
     def dot(u_, v_):
         return (u_ * v_).sum(dim=(0, 2, 3, 4))  # (B,)
 
     return A, M, dot
-
-
-def _is_f32(dtype) -> bool:
-    """Whether `dtype` names float32: a torch dtype, or anything numpy reads
-    as one (np.float32, "float32", tpufem's jnp.float32)."""
-    if isinstance(dtype, torch.dtype):
-        return dtype == torch.float32
-    try:
-        return np.dtype(dtype) == np.float32
-    except TypeError:
-        return False
 
 
 class WingStencilT:
@@ -482,11 +485,13 @@ class WingStencilT:
     (smooth_degree, smooth_alpha, power_iters, lmax_safety).
 
     solve() keeps tpufem's branches: outer_f64=True (the bench and pipeline
-    path), refine_steps > 0 and the f32-only CG (tpufem's default); its A/B
-    variants warm_f32 and dd_main raise. tpufem's keywords are taken:
-    `dtype`, the V-cycle's working dtype (f32, the only one ported;
-    torch.float32, or tpufem's jnp.float32 as a numpy dtype or its name),
-    and solve's `chunk_iters`.
+    path), refine_steps > 0 and the CG in `dtype` alone (tpufem's default);
+    its A/B variants warm_f32 and dd_main raise. tpufem's keywords are taken:
+    `dtype`, the V-cycle's and the default CG's working dtype (float32 or
+    float64, in any of tpufem's spellings: fem.device.float_dtype; another
+    dtype raises NotImplementedError), and solve's `chunk_iters`. In
+    float64 the default CG is tpufem's f64 MG-PCG: f64 V-cycle, f64 state and
+    dots, the reference its span-sharded solver is held to.
     """
 
     # correction rounds: tpufem ran up to 6 on the device plus 8 host-judged
@@ -494,14 +499,16 @@ class WingStencilT:
 
     def __init__(self, res: WingMeshResolution, device="cuda", mg_levels: int | None = None,
                  mg_kwargs: dict | None = None, *, dtype=torch.float32):
-        if not _is_f32(dtype):
+        try:
+            self.dtype = float_dtype(dtype)
+        except ValueError:
             raise NotImplementedError(f"WingStencilT: the V-cycle in {dtype!r} is not ported "
-                                      f"(float32 only)")
+                                      f"(float32 and float64 only)") from None
         self.res = res
         self.device = resolve_device(device)
         self.bt = WingBatchT(res, device=self.device)
         self.num_nodes = self.bt.num_nodes
-        self.smg = StencilMG(res, dtype=MG_DTYPE, device=self.device, n_levels=mg_levels,
+        self.smg = StencilMG(res, dtype=self.dtype, device=self.device, n_levels=mg_levels,
                              **(mg_kwargs or {}))
         self.free64 = self.smg.free_masks[0].to(torch.float64)
         # wall-clock split of the last solve(): setup / solve / recover seconds
@@ -515,12 +522,12 @@ class WingStencilT:
         return to_grid(self.res, self.bt._loads(nodes, pressure))
 
     def mg_setup(self, params4, material: Material):
-        """The f32 V-cycle's state for the batch params4 (B,4). The
-        preconditioner sees params and Lame constants rounded to f32, as
-        tpufem's does."""
+        """The V-cycle's state for the batch params4 (B,4). The
+        preconditioner sees params and Lame constants rounded to its dtype,
+        as tpufem's does."""
         lam, mu = lame_params(material)
-        lam_mg, mu_mg = (float(torch.tensor(v, dtype=MG_DTYPE)) for v in (lam, mu))
-        p4_mg = torch.as_tensor(np.asarray(params4)).to(MG_DTYPE).numpy()
+        lam_mg, mu_mg = (float(torch.tensor(v, dtype=self.dtype)) for v in (lam, mu))
+        p4_mg = torch.as_tensor(np.asarray(params4)).to(self.dtype).numpy()
         return self.smg.setup(p4_mg, lam_mg, mu_mg)
 
     def geometry64(self, params4):
@@ -543,14 +550,14 @@ class WingStencilT:
         return r, rn / torch.where(bn > 0, bn, torch.ones_like(bn))
 
     def setup(self, params4, pressure: float, material: Material):
-        """Per-batch state: the f32 multigrid and the f64 system (nodes, cell
-        geometry, loads), built on the device."""
+        """Per-batch state: the multigrid in `dtype` and the f64 system
+        (nodes, cell geometry, loads), built on the device."""
         state = {"mg": self.mg_setup(params4, material)}
         X64, state["geo64"] = self.geometry64(params4)
         state["X64"] = X64
         state["bg64"] = self._loads_grid(from_grid(self.res, X64), float(pressure))
         p464 = torch.as_tensor(np.asarray(params4), dtype=torch.float64, device=self.device)
-        state["nodes"] = self.bt._nodes(p464, MG_DTYPE)
+        state["nodes"] = self.bt._nodes(p464, self.dtype)
         return state
 
     def solve(
@@ -572,16 +579,16 @@ class WingStencilT:
         - outer_f64=True (the bench and pipeline path): the f64-operator CG
           with the f32 V-cycle as preconditioner, judged on the TRUE f64
           residual (_solve_f64);
-        - refine_steps > 0: an f32 CG to `inner_tol`, then up to
+        - refine_steps > 0: a CG in `dtype` to `inner_tol`, then up to
           refine_steps rounds of classical iterative refinement: the TRUE f64
-          residual, and an f32 correction solve to inner_tol; converged means
-          TRUE f64 rel <= tol (a stricter bar than the f32 CG's own);
-        - neither (tpufem's default): the f32 CG alone, judged on its own
-          recurred residual, with f64-accumulated dot products.
+          residual, and a correction solve in `dtype` to inner_tol; converged
+          means TRUE f64 rel <= tol (a stricter bar than the CG's own);
+        - neither (tpufem's default): the CG in `dtype` alone, judged on its
+          own recurred residual, with f64-accumulated dot products.
 
         The certified branches return the f64 u (the one the residual
-        certifies) and stress recovered from it in f64, cast to f32; the
-        f32-only branch returns its f32 u, stress and recurred residual.
+        certifies) and stress recovered from it in f64, cast to `dtype`; the
+        default branch returns its u, stress and recurred residual in `dtype`.
         tpufem evaluated the TRUE residual on the host CPU (emulated TPU f64
         could not certify tol); the port evaluates it on the device in native
         f64. `chunk_iters` is accepted and ignored (chunked dispatch only
@@ -625,10 +632,10 @@ class WingStencilT:
             x, total, rel = self._solve_f64(state, lam64, mu64, tol, maxiter)
         else:
             A, M, dot = self._ops32(state)
-            if "bg32" not in state:  # the f32 loads, from the f32 nodes (tpufem's _setup)
-                state["bg32"] = self._loads_grid(state["nodes"], float(
-                    torch.tensor(pressure, dtype=MG_DTYPE)))
-            cg = _cg_grid_init(A, M, dot, state["bg32"], torch.zeros_like(state["bg32"]))
+            if "bg" not in state:  # the loads in `dtype`, from its nodes (tpufem's _setup)
+                state["bg"] = self._loads_grid(state["nodes"], float(
+                    torch.tensor(pressure, dtype=self.dtype)))
+            cg = _cg_grid_init(A, M, dot, state["bg"], torch.zeros_like(state["bg"]))
             cg, total, rel, conv = _cg_grid_run(
                 A, M, dot, cg, inner_tol if refine_steps > 0 else tol, maxiter)
             x = cg[0]
@@ -636,24 +643,24 @@ class WingStencilT:
                 sync()
                 tm["solve_s"] = time.perf_counter() - t0
                 t0 = time.perf_counter()
-                lam, mu = (float(torch.tensor(v, dtype=MG_DTYPE)) for v in (lam64, mu64))
+                lam, mu = (float(torch.tensor(v, dtype=self.dtype)) for v in (lam64, mu64))
                 grads, vols = self.bt._grads_vols(state["nodes"])
                 u, s6, vm = self.bt._recover(grads, vols, from_grid(self.res, x), lam, mu)
                 sync()
                 tm["recover_s"] = time.perf_counter() - t0
                 return BatchTSolveResult(state["nodes"].clone(), u, s6, vm, total, rel, conv)
-            # rounds judged on the TRUE f64 residual, f32 corrections to inner_tol
+            # rounds judged on the TRUE f64 residual, corrections in `dtype` to inner_tol
             x, total, rel = _correction_rounds(
                 A, M, dot, lambda x_: self._resid64(state, x_, lam64, mu64),
                 x.to(torch.float64), total, tol, maxiter, refine_steps, float("inf"), inner_tol,
-                dtype=MG_DTYPE)
+                dtype=self.dtype)
         conv = rel <= tol
         sync()
         tm["solve_s"] = time.perf_counter() - t0
 
         # Stress recovery from the f64 state on the device (native f64; tpufem
         # shipped the state to the host CPU for this, _host_recover); only the
-        # stress OUTPUT is cast to f32.
+        # stress OUTPUT is cast to `dtype`.
         t0 = time.perf_counter()
         nodes64 = from_grid(self.res, state["X64"])
         grads, vols = self.bt._grads_vols(nodes64)
@@ -662,18 +669,18 @@ class WingStencilT:
         sync()
         tm["recover_s"] = time.perf_counter() - t0
         return BatchTSolveResult(
-            state["nodes"].clone(), u64, s6.to(MG_DTYPE), vm.to(MG_DTYPE), total, rel, conv
+            state["nodes"].clone(), u64, s6.to(self.dtype), vm.to(self.dtype), total, rel, conv
         )
 
     def _ops32(self, state):
-        """(A, M, dot) of the f32 CG: kernel B in f32 at the fine level, the
-        V-cycle, and per-lane dots accumulated in f64 and rounded to f32, as
-        tpufem's (f32 reduction noise in alpha/beta stalls CG's TRUE residual
-        around 2e-6 at 100k+ DOF, tpufem measured)."""
+        """(A, M, dot) of the CG in `dtype`: kernel B at the fine level, the
+        V-cycle, and per-lane dots accumulated in f64 and rounded to `dtype`,
+        as tpufem's (f32 reduction noise in alpha/beta stalls CG's TRUE
+        residual around 2e-6 at 100k+ DOF, tpufem measured)."""
         smg, mg = self.smg, state["mg"]
 
         def dot(u_, v_):
-            return (u_.double() * v_.double()).sum(dim=(0, 2, 3, 4)).to(MG_DTYPE)
+            return (u_.double() * v_.double()).sum(dim=(0, 2, 3, 4)).to(self.dtype)
 
         return (lambda x: smg._apply_A(0, mg[0], x)), (lambda r: smg.apply(mg, r)), dot
 

@@ -222,12 +222,14 @@ def weld_reduce2(res: WingMeshResolution, y):
     return y
 
 
-def nodes_grid2(res: WingMeshResolution, p4: torch.Tensor, dtype):
+def nodes_grid2(res: WingMeshResolution, p4: torch.Tensor, dtype, yfrac=None):
     """Full doubled-grid coordinates (3, B, NI2, NK2, NJ2) from (B,4) params.
 
     Even positions = tet4 corner coords; odd-pattern positions = exact edge
-    midpoints (straight-edge tet10)."""
-    X4 = nodes_grid(res, p4, dtype)  # (3,B,NI,NK,NJ)
+    midpoints (straight-edge tet10). `yfrac` is nodes_grid's: the corner
+    layers' span fractions, so a slab of c + 1 corner layers gives its 2c + 1
+    doubled layers."""
+    X4 = nodes_grid(res, p4, dtype, yfrac=yfrac)  # (3,B,NI,NK,NJ)
     NI, NK, NJ = X4.shape[2], X4.shape[3], X4.shape[4]
     B = X4.shape[1]
     X2 = torch.zeros((3, B, 2 * NI - 1, 2 * NK - 1, 2 * NJ - 1), dtype=dtype, device=X4.device)

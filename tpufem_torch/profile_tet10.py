@@ -126,7 +126,9 @@ M_TOL = {torch.float64: 1e-14, torch.float32: 1e-6}
 # the device kernels of each entry, by a part of their names (N: its tiles and halo kernels,
 # or its first design's one)
 KERNEL_NAMES = {"strain_apply10": "strain_apply10_kernel", "prolong_p": "prolong_p_kernel",
-                "restrict_p": "restrict_p_kernel", "tet10_force": "tet10_force"}
+                "restrict_p": "restrict_p_kernel", "tet10_force": "tet10_force",
+                "strain_apply": "strain_apply_kernel", "stiffness_apply": "stiffness_apply_kernel",
+                "csr_segment_sum": "csr_segment_sum"}
 LETTERS = {"strain_apply10": "L", "prolong_p": "M", "restrict_p": "M", "tet10_force": "N"}
 DESIGNS = {
     "strain_apply10": "cell-owning tiles of TI x TJ cells at full thickness (l_plan), two "
@@ -192,8 +194,13 @@ def check_and_time(name, label, fn, plain, tol, nbytes_, flops, dtype, timed=Tru
     same bits twice, within tol of the plain result's largest entry) and,
     with `timed`, its times (device: the `per_call` launches of each call,
     which are its only device activities) and bound."""
+    from tpufem_torch.fem import assembly
+    from tpufem_torch.ops import csr_segment_sum as cs
+
     counter = {"strain_apply10": ts.strain_apply10, "prolong_p": ts.prolong_p,
-               "restrict_p": ts.restrict_p, "tet10_force": tt10.tet10_force}[name]
+               "restrict_p": ts.restrict_p, "tet10_force": tt10.tet10_force,
+               "strain_apply": st.strain_apply, "stiffness_apply": assembly.stiffness_apply,
+               "csr_segment_sum": cs.csr_segment_sum}[name]
     before = counter.launches
     y = fn()
     torch.cuda.synchronize()
