@@ -204,7 +204,23 @@ trained checkpoint exists). Along the way:
      and D, N, E on a halo-extended mesh against their plain versions in
      f64 (times and bound): their kernels-line entries gain these shapes and
      `phase12_launches`;
- 13. prints the wall time of every phase, the peak device memory of the
+ 13. the last of tpufem, its launch counters zeroed first: (a)
+     WingStencilT.solve's A/B variants of the main path on phase 3's batch,
+     warm_f32, dd_main and both (bench.py --warm_f32 / --dd_main):
+     converged, TRUE f64 rel <= 1e-6 recomputed on the CPU in every lane, u
+     within 1e-7 of phase 3's; iterations (beside phase 3's and tpufem's
+     TPU claim of 331 for warm_f32), wall time and kernel B's launches
+     printed; (b) the warm_f32 solve inside utils.profiling.trace: exactly
+     one trace file, naming kernel B's CUDA function as many times as B's
+     counter moved; (c) ops.segment: segment_sum_sorted launches kernel A
+     in f32 at C = 128 over phase 4's graph (within 1e-5 of the plain f64
+     sum) and kernel E in f64 at C = 6 over the RBM group ids of phase 6's
+     wing (the CPU's bits); incidence_gather_sum on the card within 1e-12 of
+     the CPU's at DOF100K; (d) the native MSH2 parser (tpufem_torch/native,
+     g++) built on this host, parse_msh2 of the DOF100K wing through it
+     equal to the numpy parser's mesh, both parse times printed; B, A, E
+     (and the row pointers) gain `phase13_launches` in the kernels' line;
+ 14. prints the wall time of every phase, the peak device memory of the
      phase-3 solve, the training phase, the gather solve, the dynamics, the
      design, the tet10 phase and its gather part, the second batched engine,
      the kernels' JSON line, then {"ok": true, "device": {...}}.
@@ -503,6 +519,13 @@ def main() -> int:
         if k["name"] in P12_KERNELS:
             k["phase12_launches"] = p12_launches.get(k["name"], 0)
             k.setdefault("shapes", {}).update(p12_shapes.get(k["name"], {}))
+    t0 = time.perf_counter()
+    p13_launches = run_last_pieces(dev, state, smi)
+    walls["13 last pieces"] = time.perf_counter() - t0
+    print(f"[last] phase 13 wall {walls['13 last pieces']:.3f} s", flush=True)
+    for k in kernels:
+        if k["name"] in p13_launches:
+            k["phase13_launches"] = p13_launches[k["name"]]
     print(json.dumps({"phase_wall_s": walls}))
     print(json.dumps({"peak_device_memory_bytes": state["peak_bytes"]}))
     print(json.dumps({"kernels": kernels}))
@@ -692,7 +715,7 @@ def run(dev, res, batch):
 
     walls["3-4 stencil solve, surrogate"] = time.perf_counter() - t_phase
     state = {"solver": solver, "p4": p4, "out": out, "peak_bytes": peak_bytes, "walls": walls,
-             "stencil_csr_launches": launches["csr_segment_sum"],
+             "stencil_csr_launches": launches["csr_segment_sum"], "graph0": graphs[0],
              "segment": {"shapes": shapes, "launches": launches}}
     b64, b32 = kb["f64"], kb["f32"]
     return [
@@ -1133,6 +1156,7 @@ def run_gather_path(dev, res, state):
                     torch.randn((plan.order.shape[0], C), generator=gen, dtype=torch.float64,
                                 device=dev))
             ke[f"{label} C={C}"] = check_csr_sum(f"{label} C={C}", vals, plan)
+    state["rbm_groups"] = (plans["rbm"].node_group.cpu().numpy(), plans["rbm"].n_groups)
     del plans, vals
 
     # ---- 6b. the stencil solve of phase 3, again: on a fresh solver (setup
@@ -2624,6 +2648,208 @@ def run_multi_device(dev, state, smi):
     print(f"[multi] slab and extended-mesh kernel checks {time.perf_counter() - t0:.3f} s",
           flush=True)
     return total, shapes
+
+
+# ---------------------------------------------------------------- phase 13
+
+TPU_WARM_ITERS = 331  # tpufem's warm_f32 on the TPU (stencil_mg.py:715-723); a claim, not a bar
+
+
+def traced_b_launches(trace_file):
+    """Kernel B's device activities in a torch.profiler trace file."""
+    events = json.loads(Path(trace_file).read_text())["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel"
+               and "strain_apply_kernel" in e.get("name", ""))
+
+
+def run_last_pieces(dev, state, smi):
+    """Phase 13, the last of tpufem on the card: (a) WingStencilT.solve's
+    warm_f32 and dd_main branches and both together on phase 3's batch at
+    DOF100K (TRUE f64 rel <= 1e-6 on the CPU in every lane, u within 1e-7
+    of phase 3's); (b) the warm_f32 solve inside utils.profiling.trace: one
+    trace file whose device events hold as many of kernel B's launches as
+    its counter moved; (c) ops.segment's formulations at the real shapes:
+    segment_sum_sorted launches kernel A in f32 (C = 128, phase 4's graph)
+    and kernel E in f64 (C = 6, the RBM group ids of phase 6's wing), A
+    within phase 4's 1e-5 of the plain f64 sum, E the CPU's bits;
+    incidence_gather_sum on the card within 1e-12 of the CPU's; (d) the
+    native MSH2 parser built on this host, and parse_msh2 through it equal
+    to the numpy parser's mesh on the DOF100K wing. Returns the launches of
+    the phase by the kernels' line names."""
+    from tpufem_torch import msh2, native
+    from tpufem_torch.fem import assembly as asm
+    from tpufem_torch.fem import stencil as st
+    from tpufem_torch.fem.material import Material, lame_params
+    from tpufem_torch.mesher import DOF100K, structured_wing_mesh
+    from tpufem_torch.ops import csr_segment_sum as cs
+    from tpufem_torch.ops import gather_scatter as gs
+    from tpufem_torch.ops import segment as sg
+    from tpufem_torch.ops.gather_scatter import sorted_segment_sum_plain
+    from tpufem_torch.utils.profiling import trace
+
+    lam, mu = lame_params(Material())
+    counters = {"strain_apply": st.strain_apply, "segment_rowptr": gs.segment_rowptr,
+                "sorted_segment_sum": gs.sorted_segment_sum,
+                "csr_segment_sum": cs.csr_segment_sum}
+    for fn in counters.values():
+        fn.launches = 0
+    b = counters["strain_apply"]
+    p4, solver, out3 = state["p4"], state["solver"], state["out"]
+    u3 = out3.u
+    bt = solver.bt
+    upper, free = bt.upper.cpu().numpy(), bt.free64.cpu().numpy()
+    kw = {"pressure": PRESSURE, "tol": TOL, "maxiter": 2000, "outer_f64": True}
+    walls = {}
+
+    # ---- 13a. the two branches and both together
+    t_phase = time.perf_counter()
+    results = {}
+    for label, flags in (("warm_f32", {"warm_f32": True}), ("dd_main", {"dd_main": True}),
+                         ("warm_f32 + dd_main", {"warm_f32": True, "dd_main": True})):
+        b0 = b.launches
+        t0 = time.perf_counter()
+        o = solver.solve(p4, **kw, **flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rel_cpu = true_residual_cpu(DOF100K, p4, o.u.cpu(), upper, free, lam, mu)
+        du = ((o.u - u3).abs().max() / u3.abs().max()).item()
+        tm = solver.last_timing
+        results[label] = {"iters": o.iters, "wall_s": wall, "b_launches": b.launches - b0,
+                          "true_rel_max": float(rel_cpu.max()), "u_rel_to_phase3": du,
+                          **{k: tm[k] for k in ("setup_s", "solve_s", "recover_s")}}
+        print(f"[13a] {label}: {o.iters} iters (phase 3's default branch {out3.iters}; "
+              f"tpufem's TPU record for warm_f32 {TPU_WARM_ITERS}, a claim, not a bar), wall "
+              f"{wall:.3f} s (setup {tm['setup_s']:.3f}, solve {tm['solve_s']:.3f}, recover "
+              f"{tm['recover_s']:.3f}), kernel B launches {b.launches - b0}; TRUE f64 rel on the "
+              f"CPU max {rel_cpu.max():.3e} (bar {TOL}); max|u - u3| / max|u3| {du:.3e} "
+              f"(bar 1e-7); {smi}", flush=True)
+        require(bool(o.converged.all()) and float(rel_cpu.max()) <= TOL,
+                f"13a {label}: converged {o.converged.tolist()}, TRUE rel {rel_cpu}")
+        require(du <= 1e-7, f"13a {label}: u {du:.3e} from phase 3's")
+    walls["13a branches"] = time.perf_counter() - t_phase
+
+    # ---- 13b. the warm_f32 solve inside trace(): one file, kernel B's launches in it
+    t0 = time.perf_counter()
+    scratch = REPO / "build"
+    scratch.mkdir(exist_ok=True)
+    for attempt in range(3):  # the tracer may come up late and lose the first device records
+        with tempfile.TemporaryDirectory(dir=scratch, prefix="smoke_trace_") as tmp:
+            with trace(tmp):
+                head = torch.empty(1 << 20, device=dev)  # calls the tracer may lose, then a sync
+                t_head = time.perf_counter() + 0.05 * 2**attempt
+                while time.perf_counter() < t_head:
+                    head.add_(1.0)
+                torch.cuda.synchronize()
+                b0 = b.launches
+                solver.solve(p4, **kw, warm_f32=True)
+                torch.cuda.synchronize()
+                launched = b.launches - b0
+            files = list(Path(tmp).iterdir())
+            require(len(files) == 1, f"13b: trace() wrote {len(files)} files")
+            size = files[0].stat().st_size
+            traced = traced_b_launches(files[0])
+        if traced == launched:
+            break
+        print(f"[13b] attempt {attempt + 1}: the trace holds {traced} of kernel B's {launched} "
+              f"launches; again with a longer head", flush=True)
+    require(traced == launched and launched > 0,
+            f"13b: the trace names {traced} launches of kernel B, its counter moved {launched}")
+    walls["13b trace"] = time.perf_counter() - t0
+    print(f"[13b] trace(dir) around the warm_f32 solve: one file ({size / 1e6:.1f} MB) naming "
+          f"kernel B (strain_apply_kernel) {traced} times, as its counter moved; "
+          f"{walls['13b trace']:.3f} s", flush=True)
+
+    # ---- 13c. ops.segment at the real shapes
+    t0 = time.perf_counter()
+    seg = {}
+    g = state["graph0"]
+    n_nodes = g.num_nodes
+    dst = np.where(g.edge_mask > 0, g.edge_index[1], n_nodes)
+    perm, sorted_ids = sg.make_sorted_plan(dst)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    vals = torch.randn((dst.shape[0], 128), generator=gen, device=dev)
+    a0 = counters["sorted_segment_sum"].launches
+    y = sg.segment_sum_sorted(vals, perm, sorted_ids, n_nodes)
+    torch.cuda.synchronize()
+    require(counters["sorted_segment_sum"].launches == a0 + 1,
+            "13c: segment_sum_sorted f32 did not launch kernel A")
+    rows = vals[torch.as_tensor(perm, device=dev).long()]
+    ref = sorted_segment_sum_plain(rows.double(), torch.as_tensor(sorted_ids, device=dev),
+                                   n_nodes)
+    err, scale = (y.double() - ref).abs().max().item(), ref.abs().max().item()
+    require(err <= 1e-5 * scale, f"13c: kernel A {err:.3e} vs scale {scale:.3e}")
+    saved = {name: fn.launches for name, fn in counters.items()}  # timing is not the path
+    seg["f32 C=128"] = {"E": int(dst.shape[0]), "N": n_nodes, "max_abs_err": err, "scale": scale,
+                        "ms": median_ms(lambda: sg.segment_sum_sorted(vals, perm, sorted_ids,
+                                                                      n_nodes)),
+                        "plain_ms": median_ms(lambda: sorted_segment_sum_plain(
+                            rows, torch.as_tensor(sorted_ids, device=dev), n_nodes))}
+    for name, fn in counters.items():
+        fn.launches = saved[name]
+    node_group, n_groups = state["rbm_groups"]
+    perm, sorted_ids = sg.make_sorted_plan(node_group)
+    vals = torch.randn((node_group.shape[0], 6), generator=gen, dtype=torch.float64, device=dev)
+    e0 = counters["csr_segment_sum"].launches
+    y = sg.segment_sum_sorted(vals, perm, sorted_ids, n_groups)
+    torch.cuda.synchronize()
+    require(counters["csr_segment_sum"].launches == e0 + 1,
+            "13c: segment_sum_sorted f64 did not launch kernel E")
+    ref = sg.segment_sum_sorted(vals.cpu(), perm, sorted_ids, n_groups)
+    require(torch.equal(y.cpu(), ref), f"13c: kernel E is not the CPU's bits (largest "
+            f"difference {(y.cpu() - ref).abs().max().item():.3e})")
+    seg["f64 C=6"] = {"E": int(node_group.shape[0]), "N": n_groups, "max_abs_err": 0.0,
+                      "equals_cpu_plain": True}
+    span, chord, sweep, tc = map(float, p4[0])
+    mesh = structured_wing_mesh(span, chord, sweep, tc, DOF100K)
+    inc, mask = asm.padded_incidence(asm.build_incidence(mesh.tets, mesh.num_nodes))
+    fe = torch.randn((4 * mesh.num_tets, 3), generator=gen, dtype=torch.float64, device=dev)
+    y = sg.incidence_gather_sum(fe, inc, mask)
+    ref = sg.incidence_gather_sum(fe.cpu(), inc, mask)
+    err = (y.cpu() - ref).abs().max().item()
+    require(err <= 1e-12 * ref.abs().max().item(), f"13c: incidence_gather_sum {err:.3e}")
+    seg["incidence f64 C=3"] = {"N": mesh.num_nodes, "V": int(inc.shape[1]), "max_abs_err": err}
+    walls["13c segment"] = time.perf_counter() - t0
+    print(f"[13c] segment_sum_sorted: f32 C=128 over phase 4's graph (E={seg['f32 C=128']['E']}, "
+          f"N={n_nodes}) launched kernel A, max|err| {seg['f32 C=128']['max_abs_err']:.3e} vs "
+          f"the plain f64 sum (scale {scale:.3e}, bar 1e-5 rel), {seg['f32 C=128']['ms']:.4f} ms "
+          f"vs plain {seg['f32 C=128']['plain_ms']:.4f} ms; f64 C=6 over the RBM group ids "
+          f"(E={node_group.shape[0]}, N={n_groups}) launched kernel E, the CPU's bits; "
+          f"incidence_gather_sum f64 at DOF100K wing 0 (N={mesh.num_nodes}, V={inc.shape[1]}) "
+          f"within {err:.3e} of the CPU's", flush=True)
+
+    # ---- 13d. the native MSH2 parser on this host
+    t0 = time.perf_counter()
+    require(native.available(), f"13d: meshcore did not build here: {native.build_error}")
+    with tempfile.TemporaryDirectory(dir=scratch, prefix="smoke_msh2_") as tmp:
+        path = Path(tmp) / "dof100k_wing0.msh"
+        write_msh2(path, mesh)
+        calls = native.msh2_parse_native.calls
+        t1 = time.perf_counter()
+        m_nat = msh2.parse_msh2(path)
+        native_s = time.perf_counter() - t1
+        require(native.msh2_parse_native.calls == calls + 1, "13d: parse_msh2 did not go native")
+        parse_native = msh2.msh2_parse_native
+        msh2.msh2_parse_native = lambda text: None  # the numpy parser alone
+        try:
+            t1 = time.perf_counter()
+            m_np = msh2.parse_msh2(path)
+            numpy_s = time.perf_counter() - t1
+        finally:
+            msh2.msh2_parse_native = parse_native
+    for k in ("nodes", "tets", "surf_faces"):
+        a, c = getattr(m_nat, k), getattr(m_np, k)
+        require(a.dtype == c.dtype and np.array_equal(a, c), f"13d: {k} differs from numpy's")
+    walls["13d native msh2"] = time.perf_counter() - t0
+    print(f"[13d] meshcore built on this host; parse_msh2 of DOF100K wing 0 as MSH2 "
+          f"({mesh.num_nodes} nodes, {mesh.num_tets} tets) went native in {native_s:.3f} s, the "
+          f"numpy parser took {numpy_s:.3f} s; nodes, tets and faces equal", flush=True)
+
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"[13] launches {launches}; walls {walls}", flush=True)
+    print(json.dumps({"phase13": {"branches": results, "segment": seg, "walls": walls,
+                                  "native_parse_s": native_s, "numpy_parse_s": numpy_s,
+                                  "device": smi}}), flush=True)
+    return launches
 
 
 if __name__ == "__main__":

@@ -1255,3 +1255,57 @@ def test_kernels_D_N_on_a_halo_extended_mesh(cuda, element):
         y = tt10.tet10_force(Jinv, vols, elems, x, LAM, MU, nodes.shape[0], plan=plan)
         ref = tt10.tet10_force_plain(Jinv, vols, elems, x, LAM, MU, plan)
     assert (y - ref).abs().max() <= 1e-12 * ref.abs().max()
+
+
+# ------------------------------------------- ops.segment's sorted formulation
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("C", [1, 6, 128])
+def test_segment_sum_sorted_launches_A_or_E(cuda, dtype, C):
+    """segment_sum_sorted on the card: f32 launches kernel A entry (a) and
+    matches the plain f64 sum to 1e-5 (phase 4's bar); f64 launches kernel E
+    and gives the CPU plain version's bits; ids out of range land nowhere."""
+    from tpufem_torch.ops import segment as tseg
+
+    rng = np.random.default_rng(1)
+    E, N = 5000, 700
+    ids = rng.integers(-1, N + 2, E)
+    perm, sorted_ids = tseg.make_sorted_plan(ids)
+    v = torch.as_tensor(rng.standard_normal((E, C)), dtype=dtype)
+    counters = {torch.float32: tgs.sorted_segment_sum, torch.float64: tcs.csr_segment_sum}
+    other = counters[torch.float64 if dtype == torch.float32 else torch.float32]
+    before, before_other = counters[dtype].launches, other.launches
+    out = tseg.segment_sum_sorted(v.to(cuda), perm, sorted_ids, N)
+    torch.cuda.synchronize()
+    assert counters[dtype].launches == before + 1 and other.launches == before_other
+    ref = tseg.segment_sum_sorted(v, perm, sorted_ids, N)
+    if dtype == torch.float64:
+        assert torch.equal(out.cpu(), ref)
+    else:
+        exact = tseg.segment_sum_sorted(v.double(), perm, sorted_ids, N)
+        assert (out.cpu().double() - exact).abs().max() <= 1e-5 * exact.abs().max()
+    assert torch.equal(out, tseg.segment_sum_sorted(v.to(cuda), perm, sorted_ids, N))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.int32])
+def test_segment_sum_sorted_other_dtypes_raise(cuda, dtype):
+    from tpufem_torch.ops import segment as tseg
+
+    perm, sorted_ids = tseg.make_sorted_plan(np.array([2, 0, 1, 1]))
+    with pytest.raises(TypeError, match="segment_sum_sorted"):
+        tseg.segment_sum_sorted(torch.ones((4, 3), dtype=dtype, device=cuda), perm,
+                                sorted_ids, 3)
+
+
+def test_incidence_gather_sum_on_the_card_is_the_cpu_result(cuda):
+    from tpufem_torch.ops import segment as tseg
+
+    mesh = structured_wing_mesh(1.2, 0.35, 15.0, 0.10, COARSE)
+    plan = tas.build_incidence(mesh.tets, mesh.num_nodes)
+    inc, mask = tas.padded_incidence(plan)
+    v = torch.randn((4 * mesh.num_tets, 3), dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(0))
+    out = tseg.incidence_gather_sum(v.to(cuda), inc, mask)
+    ref = tseg.incidence_gather_sum(v, inc, mask)
+    assert (out.cpu() - ref).abs().max() <= 1e-12 * ref.abs().max()

@@ -69,3 +69,33 @@ def test_nodes_grid_and_grid_maps(nc, ns, nt, te):
     gb = tst.to_grid(rb, torch.as_tensor(v))
     np.testing.assert_array_equal(gb.numpy(), ga)
     np.testing.assert_array_equal(tst.from_grid(rb, gb).numpy(), v)
+
+
+SURFACES = [(1.2, 0.35, 0.0, 0.10), (1.5, 0.30, 20.0, 0.08), (2.0, 0.25, 30.0, 0.05)]
+
+
+@pytest.mark.parametrize("span,chord,sweep,t", SURFACES)
+def test_surface_predicates_identical(span, chord, sweep, t):
+    """geometry.surface_signed_volume and surface_is_consistently_oriented
+    against tpufem's on the lofts tests/test_geometry.py checks, and on the
+    same surface with every face flipped (negative volume) or one face
+    flipped (incoherent winding)."""
+    import tpufem.geometry as jgeo
+    import tpufem_torch.geometry as tgeo
+
+    s = tgeo.generate_wing_surface(span, chord, sweep, t)
+    js = jgeo.generate_wing_surface(span, chord, sweep, t)
+    np.testing.assert_array_equal(s.faces, js.faces)
+    flipped = tgeo.WingSurface(s.vertices, s.faces[:, [0, 2, 1]])
+    one = s.faces.copy()
+    one[0] = one[0, [0, 2, 1]]
+    incoherent = tgeo.WingSurface(s.vertices, one)
+    for surf in (s, flipped, incoherent):
+        jsurf = jgeo.WingSurface(surf.vertices, surf.faces)
+        assert tgeo.surface_signed_volume(surf) == jgeo.surface_signed_volume(jsurf)
+        assert (tgeo.surface_is_consistently_oriented(surf)
+                == jgeo.surface_is_consistently_oriented(jsurf))
+    assert tgeo.surface_signed_volume(s) > 0 and tgeo.surface_is_consistently_oriented(s)
+    assert tgeo.surface_signed_volume(flipped) == -tgeo.surface_signed_volume(s)
+    assert tgeo.surface_is_consistently_oriented(flipped)
+    assert not tgeo.surface_is_consistently_oriented(incoherent)

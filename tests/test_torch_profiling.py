@@ -1,6 +1,7 @@
 """utils/profiling.py::whole_window, the test that decides whether a
 device_time profiler window kept the device records of all its counted
-calls, on made-up event lists (no card needed)."""
+calls, on made-up event lists (no card needed); and trace, tpufem's
+profiler context on torch.profiler, on the CPU."""
 
 from types import SimpleNamespace
 
@@ -59,3 +60,37 @@ def test_whole_window(case):
     per_call, cold, lost, traced, whole = CASES[case]
     events, dev, n_kern = _window(per_call, cold, lost, traced)
     assert whole_window(events, dev, n_kern, T0, REPS, cold) is whole
+
+
+def test_trace_none_does_nothing(tmp_path, monkeypatch):
+    from tpufem_torch.utils.profiling import trace
+
+    monkeypatch.chdir(tmp_path)
+    ran = []
+    with trace(None):
+        ran.append(1)
+    assert ran == [1] and list(tmp_path.iterdir()) == []
+
+
+def test_trace_writes_one_file_with_the_solve(tmp_path):
+    """trace(dir) on the CPU: one torch.profiler trace file (chrome-trace JSON)
+    holding the CPU events of a small stencil solve."""
+    import json
+
+    import numpy as np
+
+    from tpufem_torch.fem.stencil_mg import WingStencilT
+    from tpufem_torch.mesher import WingMeshResolution
+    from tpufem_torch.utils.profiling import trace
+
+    solver = WingStencilT(WingMeshResolution(4, 6, 2, te_floor_frac=0.006, spacing="le"),
+                          device="cpu")
+    with trace(tmp_path / "tr"):
+        out = solver.solve(np.array([[1.2, 0.35, 10.0, 0.10]]), tol=1e-6, maxiter=200,
+                           outer_f64=True)
+    assert bool(out.converged.all())
+    files = list((tmp_path / "tr").iterdir())
+    assert len(files) == 1 and files[0].name.endswith(".pt.trace.json"), files
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = {e["name"] for e in events if e.get("cat") == "cpu_op"}
+    assert {"aten::mul", "aten::sum"} <= names, sorted(names)[:20]

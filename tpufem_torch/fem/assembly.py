@@ -110,6 +110,48 @@ def build_incidence(tets, num_nodes: int, device="cpu", slots: int | None = None
                          overlap=len(pair_tet) / max(len(tets), 1))
 
 
+def padded_incidence(plan) -> tuple[np.ndarray, np.ndarray]:
+    """tpufem's padded incidence pair (incidence (N, V) int32, mask (N, V)
+    float32) from a CSR plan of the flattened connectivity (an IncidencePlan,
+    or any CsrPlan): node n's slots hold its rows order[starts[n]:starts[n+1]]
+    in that order, then zeros. Both are the same stable argsort, so this is
+    the pair tpufem's build_incidence returns for the same tets."""
+    order, starts = plan.order.cpu().numpy(), np.asarray(plan.starts_host)
+    counts = np.diff(starts)
+    seg = np.repeat(np.arange(len(counts)), counts)
+    rank = np.arange(len(order)) - starts[seg]
+    inc = np.zeros((len(counts), int(counts.max(initial=0))), np.int32)
+    mask = np.zeros(inc.shape, np.float32)
+    inc[seg, rank] = order
+    mask[seg, rank] = 1.0
+    return inc, mask
+
+
+def gather_accumulate(fe_flat: torch.Tensor, incidence, inc_mask=None) -> torch.Tensor:
+    """Per-node sums of the rows of fe_flat (M, C) into (N, C) through a
+    padded incidence table, tpufem's masked gather (assembly.py:46):
+    out[n] = sum over the slots v of fe_flat[incidence[n, v]] * inc_mask[n, v].
+
+    `incidence` and `inc_mask` are tpufem's (N, V) pair from its
+    build_incidence (numpy arrays or tensors); or `incidence` is the port's
+    IncidencePlan (any CsrPlan) and inc_mask is None, and the pair is
+    padded_incidence's. The slots are added one by one in slot order, the
+    same torch ops on any device, so the card gives the CPU's bits. Kernel D
+    does this sum inside its own body; this exported formulation is not on a
+    path and has no kernel of its own."""
+    if inc_mask is None:
+        incidence, inc_mask = padded_incidence(incidence)
+    dev = fe_flat.device
+    inc = torch.as_tensor(incidence, device=dev).long()
+    mask = torch.as_tensor(inc_mask, device=dev).to(fe_flat.dtype)
+    g = fe_flat[inc]  # (N, V, C)
+    out = torch.zeros((inc.shape[0],) + tuple(fe_flat.shape[1:]), dtype=fe_flat.dtype,
+                      device=dev)
+    for v in range(inc.shape[1]):
+        out = out + g[:, v] * mask[:, v, None]
+    return out
+
+
 def tet4_element_force_plain(grads, vols, tets, u_nodes, lam, mu) -> torch.Tensor:
     """The per-tet half of kernel D's plain version: fe (T*4, 3) =
     vol * sigma . g_a per corner, sigma = 2 mu sym(H) + lam tr(H) I, H = sum_a g_a (x) u_a."""

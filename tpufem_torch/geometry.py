@@ -149,11 +149,15 @@ def generate_wing_surface(
 
 def _orient_outward(surf: WingSurface) -> WingSurface:
     """Flip all faces so signed volume is positive (outward normals)."""
-    v = surf.vertices[surf.faces]  # (F,3,3)
-    vol6 = np.einsum("fi,fi->f", v[:, 0], np.cross(v[:, 1], v[:, 2])).sum()
-    if vol6 < 0:
+    if surface_signed_volume(surf) < 0:
         return WingSurface(surf.vertices, surf.faces[:, [0, 2, 1]])
     return surf
+
+
+def surface_signed_volume(surf: WingSurface) -> float:
+    """Signed volume via divergence theorem; positive for outward orientation."""
+    v = surf.vertices[surf.faces]
+    return float(np.einsum("fi,fi->f", v[:, 0], np.cross(v[:, 1], v[:, 2])).sum() / 6.0)
 
 
 def surface_is_watertight(surf: WingSurface) -> bool:
@@ -163,3 +167,16 @@ def surface_is_watertight(surf: WingSurface) -> bool:
     edges = np.sort(edges, axis=1)
     _, counts = np.unique(edges, axis=0, return_counts=True)
     return bool(np.all(counts == 2))
+
+
+def surface_is_consistently_oriented(surf: WingSurface) -> bool:
+    """Every *directed* edge appears exactly once (manifold, coherent winding).
+
+    This is the property the reference enforces dynamically with a DFS
+    (src/deep_fem_uav_wing/meshing.py:222-306); the loft guarantees it by
+    construction and this predicate verifies that in tests.
+    """
+    f = surf.faces
+    edges = np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]], axis=0)
+    _, counts = np.unique(edges, axis=0, return_counts=True)
+    return bool(np.all(counts == 1))

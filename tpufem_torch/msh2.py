@@ -4,9 +4,9 @@
 $Nodes -> coordinates, $Elements -> surface triangles (types 2 linear / 9
 quadratic, corner nodes) and tetrahedra (types 4 linear / 11 quadratic,
 corner nodes); renumbered to dense 0-based ids, tets positively oriented,
-outward boundary faces. This is tpufem's numpy parser. tpufem first tries
-its host C++ parser (``tpufem/native/meshcore.cpp``, built with g++ at first
-use); that host code is not carried by the port.
+outward boundary faces. As tpufem's, it parses through the host C++ parser
+first (``tpufem_torch/native``: meshcore.cpp, built with g++ at first use),
+and through the numpy parser where that is unavailable.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import numpy as np
 
 from tpufem_torch.mesh_types import Mesh
 from tpufem_torch.mesher import boundary_faces
+from tpufem_torch.native import msh2_parse_native
 
 _TRI_TYPES = {2: 3, 9: 6}  # type -> nodes per element (corners first)
 _TET_TYPES = {4: 4, 11: 10}
@@ -24,8 +25,12 @@ _TET_TYPES = {4: 4, 11: 10}
 
 def parse_msh2(path: Path | str) -> Mesh:
     text = Path(path).read_text()
-    nodes_id, nodes_xyz = _parse_nodes(text)
-    tris, tets = _parse_elements(text)
+    native = msh2_parse_native(text)
+    if native is not None:
+        nodes_id, nodes_xyz, tris, tets = native
+    else:
+        nodes_id, nodes_xyz = _parse_nodes(text)
+        tris, tets = _parse_elements(text)
 
     # Renumber gmsh 1-based sparse ids -> dense 0-based.
     remap = np.full(nodes_id.max() + 1, -1, dtype=np.int64)

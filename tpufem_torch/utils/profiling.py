@@ -1,16 +1,39 @@
-"""Per-stage wall clock and solver telemetry — port of
-``tpufem/utils/profiling.py``'s ``StageTimer`` and ``solver_stats`` (the FEM
-stage's ``spans`` and ``solve_ladder`` report blocks). tpufem's ``trace()``
-wraps the JAX profiler and has no counterpart here: the port's device traces
-come from torch.profiler (``tpufem_torch/profile_*.py``), which share the two
-timers below: ``median_event_ms`` (CUDA events around one call) and
-``device_time`` (a kernel's own time from a profiler window).
+"""Per-stage wall clock, traces and solver telemetry — port of
+``tpufem/utils/profiling.py``: ``StageTimer`` and ``solver_stats`` (the FEM
+stage's ``spans`` and ``solve_ladder`` report blocks), and ``trace``, which
+wraps torch.profiler where tpufem's wraps the JAX profiler (``bench.py
+--trace DIR``). The port's profile scripts (``tpufem_torch/profile_*.py``)
+share the two timers below: ``median_event_ms`` (CUDA events around one
+call) and ``device_time`` (a kernel's own time from a profiler window).
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+from pathlib import Path
+
+
+@contextlib.contextmanager
+def trace(log_dir: Path | str | None):
+    """torch.profiler trace context; no-op when log_dir is None.
+
+    Profiles the CPU, and CUDA where a card is present, and on exit writes
+    one trace file into log_dir through
+    ``torch.profiler.tensorboard_trace_handler`` (``*.pt.trace.json``), which
+    TensorBoard's profiler plugin and ``chrome://tracing`` read."""
+    if log_dir is None:
+        yield
+        return
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=acts, on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                str(log_dir))):
+        yield
 
 
 class StageTimer:
