@@ -220,7 +220,21 @@ trained checkpoint exists). Along the way:
      g++) built on this host, parse_msh2 of the DOF100K wing through it
      equal to the numpy parser's mesh, both parse times printed; B, A, E
      (and the row pointers) gain `phase13_launches` in the kernels' line;
- 14. prints the wall time of every phase, the peak device memory of the
+ 14. WingBatchT.solve(fast_layout=True), tpufem's EXPERIMENTAL layout,
+     which the port runs as the two-level CG with every lane dot summed in
+     f64, on kernel O; with O's and E's counters zeroed: (b) at MEDIUM the
+     f32 two-level setup must refuse phase 3's batch in both layouts alike
+     (lane 3's coarse operator is not positive definite in f32), and the
+     f64 pair gives the same iterations and bits (the flag changes nothing
+     in f64), both converged, u within 1e-2 of 10c's f64 u; (c) the f32
+     pair at DOF100K on phase 3's batch, timed in turns (default, fast,
+     fast, default), each layout's runs bitwise equal: finite u, tip u_z <
+     0 in every lane, the fast layout converged wherever the default one
+     is, u within 1e-2 of 10b's f64 u on the converged lanes (iterations,
+     ms an iteration, recurred and TRUE f64 residuals printed); O's and E's
+     launches go into the line as `phase14_launches`; (d) fast_layout=True
+     under mg_levels=None gives 10b's answer;
+ 15. prints the wall time of every phase, the peak device memory of the
      phase-3 solve, the training phase, the gather solve, the dynamics, the
      design, the tet10 phase and its gather part, the second batched engine,
      the kernels' JSON line, then {"ok": true, "device": {...}}.
@@ -526,6 +540,13 @@ def main() -> int:
     for k in kernels:
         if k["name"] in p13_launches:
             k["phase13_launches"] = p13_launches[k["name"]]
+    t0 = time.perf_counter()
+    p14_launches = run_fast_layout(dev, state, smi)
+    walls["14 fast layout"] = time.perf_counter() - t0
+    for k in kernels:
+        if k["name"] in p14_launches:
+            k["phase14_launches"] = p14_launches[k["name"]]
+    print(f"[fast] phase 14 wall {walls['14 fast layout']:.3f} s", flush=True)
     print(json.dumps({"phase_wall_s": walls}))
     print(json.dumps({"peak_device_memory_bytes": state["peak_bytes"]}))
     print(json.dumps({"kernels": kernels}))
@@ -2172,6 +2193,8 @@ def run_batched_engine(dev, state, smi):
     require(bool(two.converged.all()) and bool(mgm.converged.all()), "10c: not converged")
     require(two.iters > mgm.iters, f"10c: two-level {two.iters}, multigrid {mgm.iters}")
     require(gap_c <= 1e-4, f"10c: two-level and multigrid differ by {gap_c:.3e}")
+    # phase 14's references: 10b's solver and solve, 10c's f64 two-level u
+    state["batched"] = {"mg64": mg64, "out_mg": out_mg, "medium_two_u": two.u}
 
     # ---- 10d. the f32 multigrid WingBatchT at DOF100K (tpufem's verify drive), tol 1e-6
     t0 = time.perf_counter()
@@ -2848,6 +2871,177 @@ def run_last_pieces(dev, state, smi):
     print(f"[13] launches {launches}; walls {walls}", flush=True)
     print(json.dumps({"phase13": {"branches": results, "segment": seg, "walls": walls,
                                   "native_parse_s": native_s, "numpy_parse_s": numpy_s,
+                                  "device": smi}}), flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------- phase 14
+
+LAYOUTS = ("default", "fast")
+
+
+def two_level_solve(bt, p4, layout):
+    """One two-level solve of the batch p4 to TOL in `layout`: (result, wall
+    s)."""
+    t0 = time.perf_counter()
+    o = bt.solve(p4, pressure=PRESSURE, tol=TOL, maxiter=20000, fast_layout=layout == "fast")
+    torch.cuda.synchronize()
+    return o, time.perf_counter() - t0
+
+
+def pair_line(label, res, p4, pair, bt, ref_u, lam, mu):
+    """Print one pair's iterations, residuals (recurred, and TRUE f64 on the
+    CPU), seconds (every run, in the order run), the tip and the u gap per
+    lane to ref_u; pair is {layout: (result, [wall s, ...])}; returns
+    {layout: per-lane numbers}."""
+    upper, free = bt.upper.cpu().numpy(), bt.free64.cpu().numpy()
+    rec = {}
+    for layout, (o, walls) in pair.items():
+        u = o.u.cpu().double()
+        nodes = o.nodes.cpu().numpy()
+        true = true_residual_cpu(res, p4, u, upper, free, lam, mu)
+        rec[layout] = {
+            "iters": o.iters, "wall_s": walls, "ms_per_iter": [1e3 * w / o.iters for w in walls],
+            "converged": o.converged.tolist(),
+            "rel": [float(r) for r in o.rel_residual.tolist()], "true_rel": true.tolist(),
+            "finite": bool(torch.isfinite(u).all()),
+            "tip_uz": [float(u[nodes[:, 1, k] > 0.9 * float(p4[k, 0]), 2, k].mean())
+                       for k in range(len(p4))],
+            "gap": [max_rel(u[:, :, k], ref_u[:, :, k].cpu()) for k in range(len(p4))]}
+        r = rec[layout]
+        print(f"[fast] {label} {layout}: {r['iters']} iterations, "
+              f"{[f'{w:.3f}' for w in walls]} s ({[f'{m:.3f}' for m in r['ms_per_iter']]} ms an "
+              f"iteration), converged {r['converged']}, recurred rel "
+              f"{[f'{x:.3e}' for x in r['rel']]}, TRUE f64 rel on the CPU "
+              f"{[f'{x:.3e}' for x in r['true_rel']]}, u gap per lane "
+              f"{[f'{x:.3e}' for x in r['gap']]}", flush=True)
+    return rec
+
+
+def run_fast_layout(dev, state, smi):
+    """Phase 14, WingBatchT.solve(fast_layout=True), tpufem's EXPERIMENTAL
+    layout, which the port runs as the two-level CG with every lane dot
+    summed in f64, on kernel O. With the counters of kernels O and E
+    zeroed: (b) at MEDIUM on phase 3's batch the f32 two-level setup must
+    refuse the batch in both layouts alike (lane 3's coarse RBM operator is
+    not positive definite in f32; tpufem's lane goes NaN there), and the
+    pair runs in f64, where the flag changes nothing: the default solve's
+    iterations and bits, both converged, u within 1e-2 of 10c's f64 u; (c)
+    the f32 pair at DOF100K on phase 3's batch, each solver's host plans
+    made first, timed in turns (default, fast, fast, default): each
+    layout's two runs the same bits, finite u and a downward tip in every
+    lane, the fast layout converged wherever the default one is, u within
+    1e-2 of 10b's f64 multigrid u on every converged lane; iterations,
+    recurred and TRUE f64 residuals and seconds printed. No refusal is
+    caught there. The counters are read after (c). (d) fast_layout=True
+    under mg_levels=None gives 10b's answer. Returns the launches of O and
+    E in (b)-(c) by the kernels' line names."""
+    from tpufem_torch.fem import assembly as asm
+    from tpufem_torch.fem.batched_t import WingBatchT
+    from tpufem_torch.fem.material import Material, lame_params
+    from tpufem_torch.fem.precond import NotPositiveDefiniteError
+    from tpufem_torch.mesher import DOF100K, MEDIUM
+    from tpufem_torch.ops import csr_segment_sum as cs
+
+    lam, mu = lame_params(Material())
+    p4 = state["p4"]
+    ref = state["batched"]
+    walls, solves = {}, {}
+    counters = {"stiffness_apply_t": asm.stiffness_apply_t, "csr_segment_sum": cs.csr_segment_sum}
+    for fn in counters.values():
+        fn.launches = 0
+
+    def solver(res, dtype):
+        t0 = time.perf_counter()
+        bt = WingBatchT(res, dtype=dtype, device=dev)
+        _ = bt._level, bt._rbm  # cached properties, made at their first use
+        bt.force_plans(len(p4), bt.dtype)
+        return bt, time.perf_counter() - t0
+
+    def bars(step, res, pair, bt, ref_u, dtype, plans_s):
+        rec = pair_line(f"{step} B={len(p4)} {dtype} tol {TOL}", res, p4, pair, bt, ref_u,
+                        lam, mu)
+        d, f = rec["default"], rec["fast"]
+        require(d["finite"] and f["finite"] and max(d["tip_uz"] + f["tip_uz"]) < 0,
+                f"{step}: finite {d['finite']} / {f['finite']}, tip u_z {d['tip_uz']} / "
+                f"{f['tip_uz']}")
+        require(all(cf or not cd for cd, cf in zip(d["converged"], f["converged"])),
+                f"{step}: the fast layout failed where the default converged: "
+                f"{d['converged']} / {f['converged']}")
+        for r in (d, f):
+            gaps = [g for g, c in zip(r["gap"], r["converged"]) if c]
+            require(max(gaps, default=0.0) <= 1e-2, f"{step}: u gap {r['gap']}")
+        rec["plans_s"] = plans_s
+        solves[step] = {"dtype": dtype, **rec}
+        return d, f
+
+    # ---- 14b. MEDIUM: the f32 setup refuses the batch in both layouts; the f64 pair
+    t0 = time.perf_counter()
+    bt, _ = solver(MEDIUM, torch.float32)
+    refused = {}
+    for layout in LAYOUTS:
+        try:
+            two_level_solve(bt, p4, layout)
+        except NotPositiveDefiniteError as e:
+            refused[layout] = str(e)
+    require(len(refused) == 2 and refused["default"] == refused["fast"],
+            f"14b: the f32 two-level setup at MEDIUM refused phase 3's batch in {sorted(refused)}, "
+            f"not in both layouts alike: {refused}")
+    print(f"[fast] 14b MEDIUM B={len(p4)} f32 tol {TOL}: the two-level setup refuses the batch "
+          f"in both layouts alike ({refused['fast']}); the pair in f64", flush=True)
+    bt, plans_s = solver(MEDIUM, torch.float64)
+    pair = {layout: two_level_solve(bt, p4, layout) for layout in LAYOUTS}
+    d, f = bars("14b MEDIUM", MEDIUM, {k: (o, [w]) for k, (o, w) in pair.items()}, bt,
+                ref["medium_two_u"], "f64", plans_s)
+    require(all(d["converged"]) and all(f["converged"]),
+            f"14b: converged {d['converged']} / {f['converged']}")
+    same = torch.equal(pair["default"][0].u, pair["fast"][0].u)
+    require(same and d["iters"] == f["iters"],
+            f"14b: in f64 the flag changed the solve: {d['iters']} / {f['iters']} iterations, "
+            f"bitwise {same}")
+    solves["14b MEDIUM"]["refused_f32"] = refused["fast"]
+    walls["14b MEDIUM"] = time.perf_counter() - t0
+
+    # ---- 14c. DOF100K f32, in turns: default, fast, fast, default
+    t0 = time.perf_counter()
+    bt, plans_s = solver(DOF100K, torch.float32)
+    runs = {layout: [] for layout in LAYOUTS}
+    for layout in ("default", "fast", "fast", "default"):
+        runs[layout].append(two_level_solve(bt, p4, layout))
+    for layout, ((o1, _), (o2, _)) in runs.items():
+        require(o1.iters == o2.iters and torch.equal(o1.u, o2.u),
+                f"14c: the {layout} layout's two runs differ: {o1.iters} / {o2.iters} iterations")
+    pair = {layout: (r[0][0], [w for _, w in r]) for layout, r in runs.items()}
+    d, f = bars("14c DOF100K", DOF100K, pair, bt, ref["out_mg"].u, "f32", plans_s)
+    # the TRUE residual of the f64 reference itself, rounded to f32
+    floor = true_residual_cpu(DOF100K, p4, ref["out_mg"].u.float().cpu().double(),
+                              bt.upper.cpu().numpy(), bt.free64.cpu().numpy(), lam, mu)
+    print(f"[fast] 14c DOF100K: host plans {plans_s:.3f} s before the solves; the f64 "
+          f"reference u rounded to f32 has TRUE f64 rel {[f'{x:.3e}' for x in floor]} (the "
+          f"dtype's own floor); {smi}", flush=True)
+    solves["14c DOF100K"]["reference_rounded_true_rel"] = floor.tolist()
+    walls["14c DOF100K"] = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    require(all(launches.values()),
+            f"the fast layout's solves did not launch every kernel of their path: {launches}")
+    require(launches["stiffness_apply_t"] >= 2 * (d["iters"] + f["iters"] + 2),
+            f"kernel O launched {launches['stiffness_apply_t']} times in phase 14, 14c's four "
+            f"solves took {d['iters']} / {f['iters']} iterations each")
+
+    # ---- 14d. the flag under the multigrid: 10b's answer
+    t0 = time.perf_counter()
+    again = ref["mg64"].solve(p4, pressure=PRESSURE, tol=1e-7, maxiter=2000, fast_layout=True)
+    torch.cuda.synchronize()
+    gap_d = max_rel(again.u.cpu(), ref["out_mg"].u.cpu())
+    same = torch.equal(again.u, ref["out_mg"].u)
+    print(f"[fast] 14d WingBatchT(DOF100K, float64, mg_levels=None).solve(fast_layout=True): "
+          f"{again.iters} iterations (10b: {ref['out_mg'].iters}), u gap to 10b {gap_d:.3e}, "
+          f"bitwise {same}", flush=True)
+    require(again.iters == ref["out_mg"].iters and gap_d <= 1e-12,
+            f"14d: {again.iters} iterations against 10b's {ref['out_mg'].iters}, u gap {gap_d}")
+    walls["14d multigrid"] = time.perf_counter() - t0
+    print(f"[fast] launches of phase 14b-14c: {launches}", flush=True)
+    print(json.dumps({"phase14": {"solves": solves, "walls": walls, "launches": launches,
                                   "device": smi}}), flush=True)
     return launches
 

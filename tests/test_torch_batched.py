@@ -15,7 +15,7 @@ tpufem's bars (tests/test_batched.py, tests/test_multigrid.py):
   of tpufem's f32 u (max norm; f32 CG rounding differs with the summation
   order: measured 1.2e-6 to 1.8e-6);
 - WingBatchT's, solve's and solve_wing_batch's keyword defaults are
-  tpufem's; fast_layout raises;
+  tpufem's (the fast layout's own parity: tests/test_torch_fast_layout.py);
 - generate_fem_dataset --batched --engine twolevel on a two-case COARSE
   dataset reports success with tpufem's report fields.
 """
@@ -156,8 +156,6 @@ def test_defaults_equal_tpufem():
     same(tb.solve_wing_batch, jb.solve_wing_batch)
     same(tb.WingBatchContext.__init__, jb.WingBatchContext.__init__)
     same(tb.WingBatchContext.solve, jb.WingBatchContext.solve)
-    with pytest.raises(NotImplementedError, match="fast_layout"):
-        WingBatchT(COARSE, device="cpu").solve(P4[:1], fast_layout=True)
 
 
 def test_generate_fem_dataset_twolevel(tmp_path, capsys):

@@ -1,5 +1,6 @@
-"""The port does all that tpufem does, checked name by name; and one parity
-at a size tpufem's own tests never compared: a user mesh that is not a wing.
+"""The port does all that tpufem does, checked name by name and keyword by
+keyword; and one parity at a size tpufem's own tests never compared: a user
+mesh that is not a wing.
 
 - Every public top-level function and class of every module under tpufem/
   (read with ast, so nothing of JAX is imported) has a same-named binding in
@@ -8,6 +9,12 @@ at a size tpufem's own tests never compared: a user mesh that is not a wing.
   reason. Every script of scripts/ has its CLI in tpufem_torch/scripts/ or a
   decision. No decision outlives its reason: each names something that still
   has no counterpart.
+- Every parameter of every public function and public method (with
+  __init__) of tpufem/ is a parameter of the port's counterpart (found
+  through the port's imports and base classes), or the gap is a written
+  decision in KEYWORD_DECISIONS; a public method the port has not is one
+  too. Every `raise NotImplementedError` under tpufem_torch/ is listed in
+  NOT_IMPLEMENTED with its reason. Neither list outlives its reason.
 - A box beam (not a wing) written as MSH2 goes through both packages' mesh
   and FEM stages on the gather path, f64, tol 1e-10 (the port judges the
   f64 rung on the TRUE residual, which floors near 3e-11 here): the surface
@@ -41,6 +48,83 @@ DECISIONS = {
     ("ops/gather_scatter.py", "sorted_segment_sum_pallas"): "the Pallas kernel itself; "
     "kernel A entry (a), ops/gather_scatter.py::sorted_segment_sum, ports it (its VJP, "
     "kernel C, segment_gather)",
+}
+_PLANS = ("the port hands its kernels a plan of the topology (an IncidencePlan, CsrPlan, "
+          "RbmPlan or the line plan's device arrays, built once on the host) in place of "
+          "tpufem's padded index arrays, masks and sizes; the plan carries them")
+_MESH = ("a jax.sharding.Mesh and its axis name: the port's ranks are torch.distributed "
+         "processes, whose layout parallel/meshes.py's DeviceGroup holds")
+_AGGREGATION = ("the port takes an AggregationPlan (aggregation_plan), built once per graph: "
+                "the sorted edges, their weights and the row pointers")
+_FINALIZE = ("tpufem split the setup into a jitted part and this host post-pass (the "
+             "coarsest level's exact f64 inverse); the port's setup computes that inverse "
+             "inline")
+# (module under tpufem/, function or Class.method) -> (the parameters its
+# counterpart in the port lacks, or None where the port has no such method; why)
+KEYWORD_DECISIONS = {
+    ("fem/assembly.py", "elastic_force"): (("num_nodes", "incidence", "inc_mask"), _PLANS),
+    ("fem/assembly.py", "stiffness_operator"): (("num_nodes", "incidence", "inc_mask"), _PLANS),
+    ("fem/assembly.py", "stiffness_diagonal"): (("tets", "num_nodes"), _PLANS),
+    ("fem/driver.py", "solve_core"): (
+        ("nodes", "upper_faces", "free_mask", "num_nodes", "tet_mask", "face_mask", "line_plan",
+         "num_stations", "slots_per_station", "rbm_group", "n_groups"),
+        _PLANS + "; the masks padded meshes to jit's static shapes, and the port's core takes "
+        "the f64 nodes, the upper faces and the root mask by their own names"),
+    ("fem/driver.py", "recover_core"): (("u_flat", "free_mask", "num_nodes"),
+                                        _PLANS + "; x and free are its other names"),
+    ("fem/driver.py", "residual64_core"): (
+        ("upper_faces", "pressure64", "lam64", "mu64", "num_nodes"),
+        _PLANS + "; native f64 needs no separate f64 constants (upper, pressure, lam, mu)"),
+    ("fem/loads.py", "pressure_loads"): (("num_nodes", "face_mask"), _PLANS),
+    ("fem/multigrid.py", "force_t"): (("inc", "incm"), _PLANS),
+    ("fem/multigrid.py", "line_blocks_t"): (("dtype",), "the dtype is the tensors' own"),
+    ("fem/multigrid.py", "dense_stiffness_t"): (("dtype",), "the dtype is the tensors' own"),
+    ("fem/multigrid.py", "rbm_setup_t"): (("node_group", "n_groups", "dtype"),
+                                          _PLANS + "; the dtype is the tensors' own"),
+    ("fem/multigrid.py", "rbm_apply_t"): (("node_group", "n_groups"), _PLANS),
+    ("fem/precond.py", "line_blocks"): (("S", "K"), _PLANS),
+    ("fem/precond.py", "line_blocks_from_pairs"): (("S", "K"), _PLANS),
+    ("fem/precond.py", "make_line_preconditioner"): (("S", "K"), _PLANS),
+    ("fem/precond.py", "rbm_coarse_inverse"): (("node_group", "n_groups"), _PLANS),
+    ("fem/precond.py", "make_rbm_two_level"): (("node_group", "n_groups"), _PLANS),
+    ("fem/precond.py", "spd_block_inverse"): (
+        ("ns_iters",), "the Newton-Schulz iterations of tpufem's inverse (LU lowered to scalar "
+        "loops on a TPU); the port inverts by batched Cholesky"),
+    ("fem/solver.py", "pcg"): (
+        ("x0", "dot"), "only tpufem's chunked dispatch restarted pcg from an x0 with its own "
+        "dot; the port's CG is one loop on the device from zero"),
+    ("fem/vonmises.py", "nodal_stress"): (("tets", "num_nodes"), _PLANS),
+    ("fem/stencil_mg.py", "StencilMG.finalize"): (None, _FINALIZE),
+    ("fem/tet10_stencil.py", "Tet10StencilT.finalize"): (None, _FINALIZE),
+    ("models/train.py", "Trainer.init"): (
+        ("sample",), "flax traced a sample graph to shape its parameters; a torch module is "
+        "built with its shapes"),
+    ("models/train.py", "Trainer.load_checkpoint"): (
+        ("sample",), "flax traced a sample graph to shape its parameters; a torch module is "
+        "built with its shapes"),
+    ("models/train.py", "Trainer.save_checkpoint"): (
+        ("params",), "the port's Trainer keeps its parameters in its module (state_dict); "
+        "tpufem passed its functional params around"),
+    ("models/train.py", "Trainer.predict"): (
+        ("params",), "the port's Trainer keeps its parameters in its module"),
+    ("models/train.py", "Trainer.evaluate"): (
+        ("params",), "the port's Trainer keeps its parameters in its module"),
+    ("ops/gather_scatter.py", "gather_mean_aggregate"): (("edge_index", "edge_mask", "num_nodes"),
+                                                        _AGGREGATION),
+    ("models/sage.py", "segment_mean_aggregate"): (("edge_index", "edge_mask", "num_nodes"),
+                                                   _AGGREGATION),
+    ("parallel/data_parallel.py", "make_dp_train_step"): (("mesh",), _MESH),
+    ("parallel/data_parallel.py", "shard_batch"): (("mesh", "axis"), _MESH),
+    ("parallel/halo_pcg.py", "halo_pcg_solve"): (("mesh",), _MESH),
+    ("parallel/meshes.py", "make_mesh"): (("axis",), _MESH),
+    ("parallel/shard_stencil.py", "ShardedStencilSolver.solve"): (("mesh",), _MESH),
+    ("parallel/sharded_solver.py", "sharded_pcg_solve"): (("mesh",), _MESH),
+}
+# (module under tpufem_torch/, the function that raises) -> why NotImplementedError
+NOT_IMPLEMENTED = {
+    ("fem/stencil_mg.py", "WingStencilT.__init__"): (
+        "dtypes other than float32 and float64: tpufem's bfloat16 / emulated-f64 spellings "
+        "have no V-cycle on the card"),
 }
 # scripts/ file -> why tpufem_torch/scripts/ has no CLI of that name
 SCRIPT_DECISIONS = {
@@ -87,6 +171,137 @@ def test_every_public_name_has_a_counterpart_or_a_decision():
     assert missing <= set(DECISIONS), sorted(missing - set(DECISIONS))
     assert set(DECISIONS) <= missing, ("decided, yet ported", sorted(set(DECISIONS) - missing))
     assert all(len(reason) > 20 for reason in DECISIONS.values())
+
+
+def _params(fn: ast.AST) -> list[str]:
+    """A def's parameter names; "**name" for its keyword catch-all."""
+    a = fn.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    names += [x.arg for x in (a.vararg,) if x is not None]
+    names += [f"**{a.kwarg.arg}"] if a.kwarg is not None else []
+    return [n for n in names if n not in ("self", "cls")]
+
+
+class _Module:
+    """A module's public functions and classes, read with ast: {name:
+    params}, {class: ({method: params}, base names)} and {name: (module
+    path, name)} of its `from X import name` bindings."""
+
+    def __init__(self, path: Path, root: Path, package: str):
+        self.defs, self.classes, self.imports = {}, {}, {}
+        for n in ast.parse(path.read_text()).body:
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                self.defs[n.name] = _params(n)
+            elif isinstance(n, ast.ClassDef):
+                methods = {m.name: _params(m) for m in n.body
+                           if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))}
+                self.classes[n.name] = (methods, [b.id for b in n.bases
+                                                  if isinstance(b, ast.Name)])
+            elif isinstance(n, ast.ImportFrom) and (n.module or "").startswith(package):
+                rel = n.module[len(package):].lstrip(".").replace(".", "/")
+                for al in n.names:
+                    mod = root / rel
+                    target = (mod / "__init__.py") if mod.is_dir() else mod.with_suffix(".py")
+                    self.imports[al.asname or al.name] = (target, al.name)
+
+
+_CACHE: dict = {}
+
+
+def _module(path: Path, root: Path, package: str) -> _Module:
+    if path not in _CACHE:
+        _CACHE[path] = _Module(path, root, package)
+    return _CACHE[path]
+
+
+def _find(path: Path, qual: str, root=PORT, package="tpufem_torch", depth=0):
+    """The parameters of `qual` (a function or Class.method) as `path`'s
+    module binds it, through its package imports and its classes' bases;
+    None where it binds no such thing."""
+    if depth > 8 or not path.exists():
+        return None
+    m = _module(path, root, package)
+    name, _, method = qual.partition(".")
+    if not method:
+        if name in m.defs:
+            return m.defs[name]
+        if name in m.classes:
+            return m.classes[name][0].get("__init__", [])
+    elif name in m.classes:
+        methods, bases = m.classes[name]
+        own = methods.get(method)
+        if own is not None and not any(p.startswith("**") for p in own):
+            return own
+        for base in bases:  # inherited, or handed on by a **kw catch-all
+            found = _find(path, f"{base}.{method}", root, package, depth + 1)
+            if found is not None:
+                return (own or []) + found
+        return own
+    if name in m.imports:
+        target, orig = m.imports[name]
+        return _find(target, f"{orig}.{method}" if method else orig, root, package, depth + 1)
+    return None
+
+
+def keyword_gaps() -> dict:
+    """{(module, qual): the parameters of tpufem's public function or method
+    (with __init__) that the port's counterpart lacks, or None where the
+    port has no such method}, over the names the port binds (the names it
+    lacks are DECISIONS)."""
+    gaps = {}
+    for path in sorted(TPUFEM.rglob("*.py")):
+        rel = path.relative_to(TPUFEM).as_posix()
+        port = PORT / rel
+        m = _Module(path, TPUFEM, "tpufem")
+        quals = {n: p for n, p in m.defs.items() if not n.startswith("_")}
+        for cls, (methods, _) in m.classes.items():
+            if cls.startswith("_"):
+                continue
+            quals.update({f"{cls}.{k}": p for k, p in methods.items()
+                          if not k.startswith("_") or k == "__init__"})
+        for qual, params in quals.items():
+            if (rel, qual.split(".")[0]) in DECISIONS:
+                continue
+            mine = _find(port, qual)
+            if mine is None:
+                if "." in qual:
+                    gaps[(rel, qual)] = None
+                continue
+            lacks = tuple(p for p in params if p not in mine)
+            if lacks:
+                gaps[(rel, qual)] = lacks
+    return gaps
+
+
+def test_every_keyword_has_a_counterpart_or_a_decision():
+    gaps = keyword_gaps()
+    decided = {k: names for k, (names, _) in KEYWORD_DECISIONS.items()}
+    assert set(gaps) <= set(decided), sorted(set(gaps) - set(decided))
+    assert set(decided) <= set(gaps), ("decided, yet ported", sorted(set(decided) - set(gaps)))
+    for key, names in gaps.items():
+        assert names == decided[key], (key, names, decided[key])
+    assert all(len(reason) > 20 for _, reason in KEYWORD_DECISIONS.values())
+
+
+def test_every_not_implemented_is_decided():
+    raises = set()
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(PORT).as_posix()
+
+        def walk(node, scope):
+            for child in ast.iter_child_nodes(node):
+                inner = scope
+                if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+                    inner = f"{scope}.{child.name}" if scope else child.name
+                if isinstance(child, ast.Raise) and child.exc is not None:
+                    exc = child.exc.func if isinstance(child.exc, ast.Call) else child.exc
+                    if isinstance(exc, ast.Name) and exc.id == "NotImplementedError":
+                        raises.add((rel, scope))
+                walk(child, inner)
+
+        walk(ast.parse(path.read_text()), "")
+    assert raises == set(NOT_IMPLEMENTED), sorted(raises ^ set(NOT_IMPLEMENTED))
+    assert all(len(reason) > 20 for reason in NOT_IMPLEMENTED.values())
 
 
 def test_every_module_has_a_counterpart():

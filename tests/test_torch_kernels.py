@@ -567,6 +567,27 @@ def test_stiffness_apply_t_at_every_level(cuda, lanes, dtype):
                                tas.stiffness_apply_t(g, v, tets, x, LAM, MU, column, free))
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_fast_layout_solve_on_cuda_matches_cpu(cuda, dtype):
+    """WingBatchT.solve(fast_layout=True) at COARSE, three wings: on the card
+    (kernel O once per CG iteration and for the initial residual, every lane
+    dot summed in f64) as on the CPU: f64 at tol 1e-10, u within 1e-8; f32
+    at tol 1e-5, u within 2e-5; both converged."""
+    from tpufem_torch.fem.batched_t import WingBatchT
+
+    p4 = np.array([[1.2, 0.35, 10.0, 0.10], [1.6, 0.42, 25.0, 0.07], [1.0, 0.20, 0.0, 0.15]])
+    tol, bar = (1e-10, 1e-8) if dtype == torch.float64 else (1e-5, 2e-5)
+    kw = dict(pressure=5000.0, tol=tol, maxiter=20000, fast_layout=True)
+    n0 = tas.stiffness_apply_t.launches
+    out = WingBatchT(COARSE, dtype=dtype, device=cuda).solve(p4, **kw)
+    launches = tas.stiffness_apply_t.launches - n0
+    ref = WingBatchT(COARSE, dtype=dtype, device="cpu").solve(p4, **kw)
+    assert bool(out.converged.all()) and bool(ref.converged.all())
+    assert launches >= out.iters + 1, (launches, out.iters)
+    u, ur = out.u.cpu().double(), ref.u.double()
+    assert ((u - ur).abs().max() / ur.abs().max()).item() < bar
+
+
 def test_stiffness_apply_at_the_valence_cap(cuda):
     """A node with as many incident tets as one block's shared memory holds
     (a fan of SLOT_LIMIT tets round node 0) against the plain composition, in
