@@ -119,6 +119,9 @@ KEYWORD_DECISIONS = {
     ("parallel/meshes.py", "make_mesh"): (("axis",), _MESH),
     ("parallel/shard_stencil.py", "ShardedStencilSolver.solve"): (("mesh",), _MESH),
     ("parallel/sharded_solver.py", "sharded_pcg_solve"): (("mesh",), _MESH),
+    ("utils/profiling.py", "solver_stats"): (
+        ("elapsed_s",), "no caller passes it; a solve's phases are timed by the span recorder "
+        "(utils/profiling.py::span) and WingStencilT.last_timing"),
 }
 # (module under tpufem_torch/, the function that raises) -> why NotImplementedError
 NOT_IMPLEMENTED = {

@@ -1,12 +1,15 @@
 """utils/profiling.py::whole_window, the test that decides whether a
 device_time profiler window kept the device records of all its counted
-calls, on made-up event lists (no card needed); and trace, tpufem's
-profiler context on torch.profiler, on the CPU."""
+calls, on made-up event lists (no card needed); trace, tpufem's profiler
+context on torch.profiler, on the CPU; and the span recorder: off, on,
+nested, on the profiler's clock, inside trace and under StageTimer."""
 
+import time
 from types import SimpleNamespace
 
 import pytest
 
+from tpufem_torch.utils import profiling
 from tpufem_torch.utils.profiling import whole_window
 
 REPS = 20
@@ -94,3 +97,79 @@ def test_trace_writes_one_file_with_the_solve(tmp_path):
     events = json.loads(files[0].read_text())["traceEvents"]
     names = {e["name"] for e in events if e.get("cat") == "cpu_op"}
     assert {"aten::mul", "aten::sum"} <= names, sorted(names)[:20]
+    # the solve's spans, each a record_function range; the recorder was off
+    # before, so it is off again and kept none of them
+    ranges = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"setup", "setup.coarsest_inverse", "cg", "cg.wait", "vcycle.L0",
+            "recover"} <= ranges, sorted(ranges)
+    assert not profiling.is_recording() and profiling.drain()["spans"] == []
+
+
+@pytest.fixture
+def recorder():
+    """The span recorder, empty and off before and after the test."""
+    profiling.recording(False)
+    profiling.drain()
+    yield profiling
+    profiling.recording(False)
+    profiling.drain()
+
+
+def test_recorder_off_records_nothing(recorder):
+    first = recorder.span("a")
+    assert recorder.span("b") is first
+    with recorder.span("a"):
+        recorder.count("n", 3)
+    assert recorder.drain() == {"spans": [], "counters": {}}
+
+
+def test_recorder_on_nests_in_order_and_drains(recorder):
+    assert recorder.recording(True) is False
+    with recorder.span("outer"):
+        with recorder.span("inner"):
+            recorder.count("n", 2)
+        with recorder.span("inner2"):
+            recorder.count("n", 3)
+    with recorder.span("next"):
+        pass
+    assert recorder.recording(False) is True
+    out = recorder.drain()
+    assert [(n, d) for n, _, _, d in out["spans"]] == [("outer", 0), ("inner", 1),
+                                                       ("inner2", 1), ("next", 0)]
+    (_, o0, o1, _), (_, i0, i1, _), (_, j0, j1, _), (_, n0, _, _) = out["spans"]
+    assert o0 <= i0 <= i1 <= j0 <= j1 <= o1 <= n0
+    assert out["counters"] == {"n": 5}
+    assert recorder.drain() == {"spans": [], "counters": {}}
+
+
+def test_span_encloses_the_profilers_event(recorder):
+    """A span and torch.profiler's record of the op inside it share one
+    clock: the op's [start_ns, end_ns] lies inside the span's."""
+    import torch
+
+    a = torch.randn(256, 256)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        recorder.recording(True)
+        with recorder.span("mm"):
+            a @ a
+        recorder.recording(False)
+    (_, s0, s1, _), = recorder.drain()["spans"]
+    ops = [(e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+           if e.name() == "aten::mm"]
+    assert len(ops) == 1
+    assert s0 <= ops[0][0] <= ops[0][1] <= s1, (s0, ops, s1)
+
+
+def test_stage_timer_times_through_the_recorder(recorder):
+    timer = profiling.StageTimer()
+    with timer.span("mesh"):
+        time.sleep(0.002)
+    recorder.recording(True)
+    with timer.span("mesh"):
+        time.sleep(0.002)
+    recorder.recording(False)
+    (name, s0, s1, depth), = recorder.drain()["spans"]
+    assert (name, depth) == ("mesh", 0)
+    rep = timer.report()
+    assert list(rep) == ["mesh_ms"] and rep["mesh_ms"] >= 4.0
+    assert rep["mesh_ms"] >= round((s1 - s0) * 1e-6, 3)

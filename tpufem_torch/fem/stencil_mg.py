@@ -35,6 +35,7 @@ from tpufem_torch.fem.stencil import (
 )
 from tpufem_torch.geometry import stations
 from tpufem_torch.mesher import WingMeshResolution
+from tpufem_torch.utils import profiling
 
 _LINE_OFFSETS = ((0, 0, -1), (0, 0, 0), (0, 0, 1))
 
@@ -229,6 +230,7 @@ class StencilMG:
             f[..., 0] = 0.0
             self.free_masks.append(torch.as_tensor(f, dtype=dtype, device=self.device))
         self._coarsest_host = _level_host(self.resolutions[-1])
+        self._level_spans = [f"vcycle.L{li}" for li in range(self.n_levels)]
 
     # ---- per-level operator
     def _apply_A(self, li, st, x):
@@ -327,10 +329,11 @@ class StencilMG:
             else:
                 # exact f64 dense inverse of the coarsest level, assembled on the
                 # host and shipped to the device once per solve
-                Kinv = coarsest_dense_inverse_host(
-                    self._coarsest_host, np.asarray(p4, np.float64), float(lam), float(mu)
-                )
-                st["Kinv"] = torch.as_tensor(Kinv, dtype=self.dtype, device=self.device)
+                with profiling.span("setup.coarsest_inverse"):
+                    Kinv = coarsest_dense_inverse_host(
+                        self._coarsest_host, np.asarray(p4, np.float64), float(lam), float(mu)
+                    )
+                    st["Kinv"] = torch.as_tensor(Kinv, dtype=self.dtype, device=self.device)
             state.append(st)
         return state
 
@@ -338,23 +341,26 @@ class StencilMG:
         return self._vcycle(state, 0, rg)
 
     def _vcycle(self, state, li, rg):
+        """The V-cycle from level li down, in the span vcycle.L<li> (the
+        coarsest level's is its dense solve)."""
         st = state[li]
-        if li == self.n_levels - 1:
-            r = self.resolutions[li]
-            rv = from_grid(r, rg)  # (N,3,B)
-            flat = rv.reshape(-1, rv.shape[-1])
-            z = torch.einsum("bij,jb->ib", st["Kinv"], flat)
-            return to_grid(r, z.reshape(rv.shape))
-        A = lambda x: self._apply_A(li, st, x)  # noqa: E731
-        M = lambda rr: self._line_apply(li, st["Binv"], rr)  # noqa: E731
-        x = self._chebyshev(A, M, rg, st["lmax"], self.smooth_degree, self.smooth_alpha)
-        rr = rg - A(x)
-        rc = self._restrict(li, rr)
-        xc = self._vcycle(state, li + 1, rc)
-        x = x + self._prolong(li, xc)
-        rr = rg - A(x)
-        x = x + self._chebyshev(A, M, rr, st["lmax"], self.smooth_degree, self.smooth_alpha)
-        return x
+        with profiling.span(self._level_spans[li]):
+            if li == self.n_levels - 1:
+                r = self.resolutions[li]
+                rv = from_grid(r, rg)  # (N,3,B)
+                flat = rv.reshape(-1, rv.shape[-1])
+                z = torch.einsum("bij,jb->ib", st["Kinv"], flat)
+                return to_grid(r, z.reshape(rv.shape))
+            A = lambda x: self._apply_A(li, st, x)  # noqa: E731
+            M = lambda rr: self._line_apply(li, st["Binv"], rr)  # noqa: E731
+            x = self._chebyshev(A, M, rg, st["lmax"], self.smooth_degree, self.smooth_alpha)
+            rr = rg - A(x)
+            rc = self._restrict(li, rr)
+            xc = self._vcycle(state, li + 1, rc)
+            x = x + self._prolong(li, xc)
+            rr = rg - A(x)
+            x = x + self._chebyshev(A, M, rr, st["lmax"], self.smooth_degree, self.smooth_alpha)
+            return x
 
 
 # -------------------------------------------------------------- batched CG
@@ -381,7 +387,7 @@ def _cg_grid_init(A, M, dot, bg, x0):
 _CHECK_EVERY = 8  # CG steps between host convergence checks (each is a sync)
 
 
-def _cg_grid_run(A, M, dot, cg, tol, maxiter, lanes=_lanes):
+def _cg_grid_run(A, M, dot, cg, tol, maxiter, lanes=_lanes, needs=None):
     """Up to `maxiter` PCG iterations from Krylov state `cg`, lanes masked
     per case over the lane axis (the lanes are the shape of `dot`'s result;
     `lanes(v, x)` broadcasts per-lane values over x: _lanes, or for the
@@ -393,16 +399,27 @@ def _cg_grid_run(A, M, dot, cg, tol, maxiter, lanes=_lanes):
     per-lane `done` mask freezes a converged lane (alpha = beta = 0), so the
     extra steps leave it unchanged, and the per-lane step counts kept on the
     device give iters = the number of steps the while_loop would have taken.
+
+    Each host read that waits on the device is a span cg.wait. While the
+    span recorder is on (utils.profiling), the counter cg.lane_steps gains
+    the lanes times the steps run, and cg.lane_steps_useful the steps of
+    lanes not yet converged among `needs` (a per-lane bool; every lane where
+    None), read in the one transfer that gives iters.
     """
     x, r, p, z, rz, bn = cg
     tol2 = (tol * bn) ** 2
     count = torch.zeros_like(bn, dtype=torch.int64)
     zero = torch.zeros_like(rz)
     one = torch.ones_like(rz)
+    steps = 0
     for k in range(maxiter):
         rr = dot(r, r)
-        if k % _CHECK_EVERY == 0 and not bool((rr > tol2).any()):
-            break
+        if k % _CHECK_EVERY == 0:
+            with profiling.span("cg.wait"):
+                going = bool((rr > tol2).any())
+            if not going:
+                break
+        steps += 1
         done = (rr <= tol2) | ~torch.isfinite(rr)
         count += (~done).to(count.dtype)
         Ap = A(p)
@@ -417,7 +434,15 @@ def _cg_grid_run(A, M, dot, cg, tol, maxiter, lanes=_lanes):
         p = z + lanes(beta, p) * p
         rz = torch.where(done, rz, rz_new)
     rel = torch.sqrt(dot(r, r)) / bn
-    return (x, r, p, z, rz, bn), int(count.max()), rel, rel <= tol
+    with profiling.span("cg.wait"):
+        if profiling.is_recording():
+            useful = count if needs is None else count * needs
+            iters, n_useful = torch.stack([count.max(), useful.sum()]).tolist()
+            profiling.count("cg.lane_steps", steps * count.numel())
+            profiling.count("cg.lane_steps_useful", n_useful)
+        else:
+            iters = int(count.max())
+    return (x, r, p, z, rz, bn), iters, rel, rel <= tol
 
 
 def _correction_rounds(A, M, dot, resid, x, total, tol, maxiter, rounds, stop_ratio,
@@ -433,11 +458,14 @@ def _correction_rounds(A, M, dot, resid, x, total, tol, maxiter, rounds, stop_ra
     scaled system A c = r/||r|| is solved by the CG (A, M, dot) to
     `inner_tol` (a number, or a function of the worst rel), in `dtype` where
     given, and x += ||r|| c. The returned rel is always that of the returned x.
+    A correction's CG steps count as useful (_cg_grid_run's counters) only on
+    the lanes above tol at the round's start.
     """
     prev = np.inf
     for rnd in range(rounds + 1):
         r, rel = resid(x)
-        relmax = float(rel.max())
+        with profiling.span("cg.wait"):
+            relmax = float(rel.max())
         if say is not None:
             say(f"TRUE f64 rel {relmax:.3e}")
         if (relmax <= tol or total >= maxiter or relmax > stop_ratio * prev
@@ -450,7 +478,8 @@ def _correction_rounds(A, M, dot, resid, x, total, tol, maxiter, rounds, stop_ra
         rb = (r / safe).to(dtype or r.dtype)
         ccg = _cg_grid_init(A, M, dot, rb, torch.zeros_like(rb))
         ctol = inner_tol(relmax) if callable(inner_tol) else inner_tol
-        ccg, k, _, _ = _cg_grid_run(A, M, dot, ccg, ctol, maxiter - total)
+        needs = rel > tol if profiling.is_recording() else None
+        ccg, k, _, _ = _cg_grid_run(A, M, dot, ccg, ctol, maxiter - total, needs=needs)
         total += k
         x = x + ccg[0].to(x.dtype) * safe
     return x, total, rel
@@ -618,56 +647,57 @@ class WingStencilT:
         if self._setup_cache is not None and self._setup_cache[0] == key:
             state = self._setup_cache[1]
         else:
-            t0 = time.perf_counter()
-            self._setup_cache = None  # the old state's memory is free while the new is built
-            state = self.setup(params4, pressure, material)
-            sync()
-            self._setup_cache = (key, state)
-            tm["setup_s"] = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        if outer_f64:
-            x, total, rel = self._solve_f64(state, pressure, lam64, mu64, tol, maxiter,
-                                            warm_f32, dd_main)
-        else:
-            A, M, dot = self._ops32(state)
-            bg = self._loads_dtype(state, pressure)
-            cg = _cg_grid_init(A, M, dot, bg, torch.zeros_like(bg))
-            cg, total, rel, conv = _cg_grid_run(
-                A, M, dot, cg, inner_tol if refine_steps > 0 else tol, maxiter)
-            x = cg[0]
-            if refine_steps <= 0:
-                sync()
-                tm["solve_s"] = time.perf_counter() - t0
+            with profiling.span("setup"):
                 t0 = time.perf_counter()
+                self._setup_cache = None  # the old state's memory is free while the new is built
+                state = self.setup(params4, pressure, material)
+                sync()
+                self._setup_cache = (key, state)
+                tm["setup_s"] = time.perf_counter() - t0
+
+        certified = outer_f64 or refine_steps > 0
+        with profiling.span("cg"):
+            t0 = time.perf_counter()
+            if outer_f64:
+                x, total, rel = self._solve_f64(state, pressure, lam64, mu64, tol, maxiter,
+                                                warm_f32, dd_main)
+            else:
+                A, M, dot = self._ops32(state)
+                bg = self._loads_dtype(state, pressure)
+                cg = _cg_grid_init(A, M, dot, bg, torch.zeros_like(bg))
+                cg, total, rel, conv = _cg_grid_run(
+                    A, M, dot, cg, inner_tol if refine_steps > 0 else tol, maxiter)
+                x = cg[0]
+                if refine_steps > 0:
+                    # rounds judged on the TRUE f64 residual, corrections in `dtype` to
+                    # inner_tol
+                    x, total, rel = _correction_rounds(
+                        A, M, dot, lambda x_: self._resid64(state, x_, lam64, mu64),
+                        x.to(torch.float64), total, tol, maxiter, refine_steps, float("inf"),
+                        inner_tol, dtype=self.dtype)
+            if certified:
+                conv = rel <= tol
+            sync()
+            tm["solve_s"] = time.perf_counter() - t0
+
+        with profiling.span("recover"):
+            t0 = time.perf_counter()
+            if certified:
+                # Stress recovery from the f64 state on the device (native f64;
+                # tpufem shipped the state to the host CPU for this, _host_recover);
+                # only the stress OUTPUT is cast to `dtype`.
+                nodes64 = from_grid(self.res, state["X64"])
+                grads, vols = self.bt._grads_vols(nodes64)
+                x64 = from_grid(self.res, x)
+                u, s6, vm = self.bt._recover(grads, vols, x64, lam64, mu64)
+            else:
                 lam, mu = (float(torch.tensor(v, dtype=self.dtype)) for v in (lam64, mu64))
                 grads, vols = self.bt._grads_vols(state["nodes"])
                 u, s6, vm = self.bt._recover(grads, vols, from_grid(self.res, x), lam, mu)
-                sync()
-                tm["recover_s"] = time.perf_counter() - t0
-                return BatchTSolveResult(state["nodes"].clone(), u, s6, vm, total, rel, conv)
-            # rounds judged on the TRUE f64 residual, corrections in `dtype` to inner_tol
-            x, total, rel = _correction_rounds(
-                A, M, dot, lambda x_: self._resid64(state, x_, lam64, mu64),
-                x.to(torch.float64), total, tol, maxiter, refine_steps, float("inf"), inner_tol,
-                dtype=self.dtype)
-        conv = rel <= tol
-        sync()
-        tm["solve_s"] = time.perf_counter() - t0
-
-        # Stress recovery from the f64 state on the device (native f64; tpufem
-        # shipped the state to the host CPU for this, _host_recover); only the
-        # stress OUTPUT is cast to `dtype`.
-        t0 = time.perf_counter()
-        nodes64 = from_grid(self.res, state["X64"])
-        grads, vols = self.bt._grads_vols(nodes64)
-        x64 = from_grid(self.res, x)
-        u64, s6, vm = self.bt._recover(grads, vols, x64, lam64, mu64)
-        sync()
-        tm["recover_s"] = time.perf_counter() - t0
-        return BatchTSolveResult(
-            state["nodes"].clone(), u64, s6.to(self.dtype), vm.to(self.dtype), total, rel, conv
-        )
+            sync()
+            tm["recover_s"] = time.perf_counter() - t0
+        return BatchTSolveResult(state["nodes"].clone(), u, s6.to(self.dtype), vm.to(self.dtype),
+                                 total, rel, conv)
 
     def _loads_dtype(self, state, pressure: float):
         """The loads in `dtype`, from its nodes (tpufem's _setup), kept in

@@ -5,6 +5,18 @@ wraps torch.profiler where tpufem's wraps the JAX profiler (``bench.py
 --trace DIR``). The port's profile scripts (``tpufem_torch/profile_*.py``)
 share the two timers below: ``median_event_ms`` (CUDA events around one
 call) and ``device_time`` (a kernel's own time from a profiler window).
+
+The span recorder: ``span(name)`` times a stretch of the host's work and
+``count(name, n)`` adds to a counter, both while recording is on
+(``recording(True)``) and neither otherwise: then ``span`` hands back one
+shared no-op context and ``count`` returns at once, with no allocation, no
+clock read and no device work. A span is ``(name, start_ns, end_ns, depth)``
+on ``time.time_ns()``, the clock torch.profiler stamps its events with, so a
+span lies on a device trace's timeline as it is; ``depth`` is the number of
+spans open around it. The recorder times the host alone: it adds no
+synchronisation and no device work, on or off. ``drain()`` hands back what
+was recorded and clears it. Spans nest on one thread; the recorder is the
+process's.
 """
 
 from __future__ import annotations
@@ -14,6 +26,81 @@ import time
 from pathlib import Path
 
 
+class _Recorder:
+    def __init__(self):
+        self.on = False
+        self.emit = False  # each span also a torch.profiler.record_function range (trace)
+        self.depth = 0
+        self.spans: list[tuple[str, int, int, int]] = []
+        self.counters: dict[str, int] = {}
+
+
+_REC = _Recorder()
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    """One timed stretch; recorded on exit where recording is on."""
+
+    __slots__ = ("name", "t0", "t1", "depth", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.depth = _REC.depth
+        _REC.depth += 1
+        self.rf = None
+        if _REC.emit:
+            import torch
+
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1 = time.time_ns()
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        _REC.depth -= 1
+        if _REC.on:
+            _REC.spans.append((self.name, self.t0, self.t1, self.depth))
+        return False
+
+
+def span(name: str):
+    """Context manager: the span `name` while recording is on, else one shared
+    no-op context. Callers keep `name` a constant (no string built per call)."""
+    return _Span(name) if _REC.on else _OFF
+
+
+def count(name: str, n: int) -> None:
+    """Adds n to the counter `name` while recording is on."""
+    if _REC.on:
+        _REC.counters[name] = _REC.counters.get(name, 0) + int(n)
+
+
+def recording(on: bool) -> bool:
+    """Turns the recorder on or off; returns whether it was on."""
+    was, _REC.on = _REC.on, bool(on)
+    return was
+
+
+def is_recording() -> bool:
+    return _REC.on
+
+
+def drain() -> dict:
+    """{"spans": [(name, start_ns, end_ns, depth)] in order of start, outer
+    before inner, "counters": {name: n}}: what was recorded since the last
+    drain, which the recorder forgets."""
+    out = {"spans": sorted(_REC.spans, key=lambda s: (s[1], s[3])),
+           "counters": dict(_REC.counters)}
+    _REC.spans, _REC.counters = [], {}
+    return out
+
+
 @contextlib.contextmanager
 def trace(log_dir: Path | str | None):
     """torch.profiler trace context; no-op when log_dir is None.
@@ -21,7 +108,10 @@ def trace(log_dir: Path | str | None):
     Profiles the CPU, and CUDA where a card is present, and on exit writes
     one trace file into log_dir through
     ``torch.profiler.tensorboard_trace_handler`` (``*.pt.trace.json``), which
-    TensorBoard's profiler plugin and ``chrome://tracing`` read."""
+    TensorBoard's profiler plugin and ``chrome://tracing`` read. The span
+    recorder is on inside, and each span is a ``record_function`` range in
+    the file; spans recorded inside are kept only where the recorder was
+    already on."""
     if log_dir is None:
         yield
         return
@@ -30,38 +120,42 @@ def trace(log_dir: Path | str | None):
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-            activities=acts, on_trace_ready=torch.profiler.tensorboard_trace_handler(
-                str(log_dir))):
-        yield
+    was = (_REC.on, _REC.emit)
+    try:
+        with torch.profiler.profile(
+                activities=acts, on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                    str(log_dir))):
+            _REC.on = _REC.emit = True
+            yield
+    finally:
+        _REC.on, _REC.emit = was
+        if not was[0]:
+            drain()
 
 
 class StageTimer:
     """Accumulates named wall-clock spans; `report()` gives the elapsed_ms dict
-    embedded into StepReport.extra."""
+    embedded into StepReport.extra. Each span is timed by the span recorder,
+    and recorded there too while recording is on."""
 
     def __init__(self):
         self.spans: dict[str, float] = {}
 
     @contextlib.contextmanager
     def span(self, name: str):
-        t0 = time.perf_counter()
+        s = _Span(name)
         try:
-            yield
+            with s:
+                yield
         finally:
-            self.spans[name] = self.spans.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            self.spans[name] = self.spans.get(name, 0.0) + (s.t1 - s.t0) * 1e-6
 
     def report(self) -> dict[str, float]:
         return {f"{k}_ms": round(v, 3) for k, v in self.spans.items()}
 
 
-def solver_stats(iters: int, rel_residual: float, converged: bool,
-                 elapsed_s: float | None = None) -> dict:
-    out = {"iters": int(iters), "rel_residual": float(rel_residual), "converged": bool(converged)}
-    if elapsed_s is not None:
-        out["elapsed_s"] = round(elapsed_s, 4)
-        out["iters_per_s"] = round(iters / max(elapsed_s, 1e-9), 1)
-    return out
+def solver_stats(iters: int, rel_residual: float, converged: bool) -> dict:
+    return {"iters": int(iters), "rel_residual": float(rel_residual), "converged": bool(converged)}
 
 
 def median_event_ms(fn, runs: int = 21) -> float:
